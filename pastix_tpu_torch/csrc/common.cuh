@@ -1,0 +1,22 @@
+// Shared helpers of the hand-written Hopper kernels (plain C interface,
+// loaded with ctypes by pastix_tpu_torch/_build.py).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// Load one operand element as fp32.  ROUND rounds an fp32 element to
+// bf16 first: the update dtype is bf16 but the element comes from the
+// fp32 pool (the reference casts such operands before its dot).
+template <bool ROUND>
+__device__ __forceinline__ float load_op(const float* p) {
+  float x = __ldg(p);
+  if (ROUND) x = __bfloat162float(__float2bfloat16_rn(x));
+  return x;
+}
+
+template <bool ROUND>
+__device__ __forceinline__ float load_op(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}

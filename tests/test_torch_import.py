@@ -1,0 +1,78 @@
+"""The port imports no JAX and uses no Pallas, torch.compile or fused
+attention.  The import check runs in a subprocess: conftest.py has
+already imported JAX into this one."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "pastix_tpu_torch")
+SLICE_MODULES = [
+    "pastix_tpu_torch",
+    "pastix_tpu_torch._build",
+    "pastix_tpu_torch._device",
+    "pastix_tpu_torch.convert",
+    "pastix_tpu_torch.krylov",
+    "pastix_tpu_torch.numeric.factorize",
+    "pastix_tpu_torch.numeric.kernels",
+    "pastix_tpu_torch.numeric.leftlook",
+    "pastix_tpu_torch.numeric.sweep_kernels",
+    "pastix_tpu_torch.pastix",
+    "pastix_tpu_torch.solve",
+]
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SLICE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import pastix_tpu_torch as P\n"
+        "P.Pastix, P.spsolve\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib')))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+
+
+def _sources():
+    for d, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+
+
+@pytest.mark.parametrize("path", sorted(_sources()),
+                         ids=lambda p: os.path.relpath(p, PKG))
+def test_source_uses_no_jax_pallas_or_compile(path):
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            names = []
+        for n in names:
+            root = n.split(".")[0]
+            assert root not in ("jax", "jaxlib"), f"imports {n}"
+            assert "pallas" not in n, f"imports {n}"
+            # the JAX-importing modules of the reference package
+            assert not n.startswith((
+                "pastix_tpu.numeric", "pastix_tpu.pastix", "pastix_tpu.solve",
+                "pastix_tpu.krylov", "pastix_tpu.perf", "pastix_tpu.trace",
+                "pastix_tpu.parallel",
+            )), f"imports {n}"
+        if isinstance(node, ast.Attribute):
+            assert node.attr not in (
+                "compile", "scaled_dot_product_attention"
+            ), f"uses .{node.attr}"
