@@ -1,15 +1,16 @@
 """pastix_tpu_torch — the PyTorch/CUDA port of ``pastix_tpu``.
 
-The same sparse direct solver on an NVIDIA H100: the host analysis of
-``pastix_tpu`` (ordering, symbolic factorization, tile layout; none of it
-imports JAX) is shared, and the device side runs in PyTorch with
-hand-written CUDA kernels in place of the Pallas kernels.  This first
-slice covers real LLᵗ end to end; see ROADMAP.md for what follows.
+The same sparse direct solver on an NVIDIA H100.  The host analysis
+(ordering, symbolic factorization, tile layout, the native C++ library)
+is the package's own copy of ``pastix_tpu``'s; the device side runs in
+PyTorch with hand-written CUDA kernels in place of the Pallas kernels.
+Real LLᵗ runs end to end, the Schur complement included; see ROADMAP.md
+for what follows.
 
-The package never imports JAX.
+The package imports neither JAX nor anything of ``pastix_tpu``.
 """
 
-from pastix_tpu.config import Factorization, PastixConfig, RefinementMethod, SolveReport
+from pastix_tpu_torch.config import Factorization, PastixConfig, RefinementMethod, SolveReport
 
 __version__ = "0.1.0"
 

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles every source into one shared library with a plain C
-interface for ``sm_90a``; ``ctypes`` loads it.  The library lands in
+``nvcc`` compiles each source to an object for ``sm_90a``, all sources at
+once in parallel processes, and links them into one shared library with a
+plain C interface; ``ctypes`` loads it.  The library lands in
 ``pastix_tpu_torch/_build/``, named by a hash of the sources, and is built
 at first use: the first kernel launch of a process pays the build.
 """
@@ -21,11 +22,11 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _OUT = os.path.join(_HERE, "_build")
-_SOURCES = ("ll_gemm_scatter.cu", "sweep.cu")
+_SOURCES = ("ll_gemm_scatter.cu", "sweep.cu", "pipelined_gemm_scatter.cu")
 _HEADERS = ("common.cuh",)
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIB = None
@@ -55,18 +56,44 @@ def _digest() -> str:
 def _compile(so_path: str) -> None:
     global build_seconds, build_log
     os.makedirs(_OUT, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_OUT)
-    os.close(fd)
-    cmd = [_nvcc(), *_FLAGS, "-o", tmp,
-           *(os.path.join(_CSRC, s) for s in _SOURCES)]
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    build_seconds = time.perf_counter() - t0
-    build_log = r.stdout + r.stderr
-    if r.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
-    os.replace(tmp, so_path)
+    tmpdir = tempfile.mkdtemp(dir=_OUT)
+    try:
+        t0 = time.perf_counter()
+        nvcc = _nvcc()
+        objs = [os.path.join(tmpdir, s + ".o") for s in _SOURCES]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *_FLAGS, "-c", "-o", o, os.path.join(_CSRC, s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for s, o in zip(_SOURCES, objs)
+        ]
+        logs, failed = [], []
+        for s, p in zip(_SOURCES, procs):
+            try:
+                out, _ = p.communicate(timeout=900)
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                    q.wait()
+                raise
+            logs.append(f"--- {s}\n{out}")
+            if p.returncode != 0:
+                failed.append(s)
+        build_log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        tmp = os.path.join(tmpdir, "lib.so")
+        r = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                           capture_output=True, text=True, timeout=300)
+        build_log += r.stdout + r.stderr
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{build_log}")
+        os.replace(tmp, so_path)
+        build_seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
 
 
 def get_lib() -> ctypes.CDLL:
@@ -85,6 +112,8 @@ def get_lib() -> ctypes.CDLL:
     lib.pastix_sweep_diag.restype = I
     lib.pastix_sweep_update.argtypes = [P] * 8 + [L, L, I, I, I, P]
     lib.pastix_sweep_update.restype = I
+    lib.pastix_pipelined_gemm_scatter.argtypes = [P] * 5 + [L, I, I, P]
+    lib.pastix_pipelined_gemm_scatter.restype = I
     lib.pastix_cuda_error.argtypes = [I]
     lib.pastix_cuda_error.restype = ctypes.c_char_p
     _LIB = lib

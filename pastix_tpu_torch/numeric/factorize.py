@@ -6,8 +6,10 @@ The reference unrolls flop-heavy levels and scans the rest
 outside its unrolled set keep right-looking residue updates.  PyTorch runs
 eagerly and has no scan, so here every level is left-looking:
 ``regroup_left(..., unrolled=None)`` moves every update to its target's
-level (or to the dense-tail pre-pass) and the residue is empty.  Parity
-with the reference holds to rounding, not update for update.
+level (or to the dense-tail pre-pass).  The only residue left is the
+updates into Schur columns, which no level factors: each level applies its
+own right after its TRSM (kernel K3), as the reference applies ``p_full``.
+Parity with the reference holds to rounding, not update for update.
 """
 
 from __future__ import annotations
@@ -19,11 +21,14 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from pastix_tpu.analyze.layout import SolverLayout
-from pastix_tpu.config import Factorization
+from pastix_tpu_torch.analyze.layout import SolverLayout
+from pastix_tpu_torch.config import Factorization
 from pastix_tpu_torch.numeric.kernels import potrf_batch, round_to, tri_inv_batch
 from pastix_tpu_torch.numeric.leftlook import (
     build_ll_schedule, gemm_scatter_ll, ll_plan, regroup_left,
+)
+from pastix_tpu_torch.numeric.pipelined import (
+    build_pipeline_schedule, gemm_scatter_pipelined, pipeline_plan,
 )
 
 # panel TRSM chunk (tiles): bounds the (nt, T, T) gather transients, as
@@ -31,6 +36,9 @@ from pastix_tpu_torch.numeric.leftlook import (
 _PANEL_CHUNK = 16384
 # LL schedule knobs: the reference's defaults (PASTIX_LL_GROUP, _LL_CAP)
 _LL_GROUP, _LL_CAP = 4, 1024
+# pipeline schedule knobs: the reference's defaults (PASTIX_E2_GROUP and
+# build_pipeline_schedule's chunk)
+_PIPE_GROUP, _PIPE_CHUNK = 2, 8192
 
 
 def build_coefinit_fn(layout: SolverLayout, A_pattern: sp.spmatrix, device):
@@ -79,6 +87,7 @@ class _Level:
     tp: torch.Tensor  # pool idx of its panel tiles
     tcpos: torch.Tensor  # each panel's column position in the level
     ll: list  # LLChunk plan of the updates into this level
+    schur: list  # PipeChunk plan of its updates into Schur columns
 
 
 def build_factorize_fn(layout: SolverLayout, device, update_dtype=None,
@@ -88,24 +97,30 @@ def build_factorize_fn(layout: SolverLayout, device, update_dtype=None,
     (``pastix_tpu/pastix.py`` ``factorize``).
 
     Per level: the incoming left-looking pass (kernel K1), batched
-    Cholesky of the diagonal tiles, then the panel TRSM as a matmul with
-    the inverted diagonals.  With ``dense_tail`` (``plan_dense_tail``):
+    Cholesky of the diagonal tiles, the panel TRSM as a matmul with the
+    inverted diagonals, then the level's updates into Schur columns
+    (kernel K3; a layout built with ``schur_first_bcol``).  With
+    ``dense_tail`` (``plan_dense_tail``):
     the tail pre-pass (K1 again) and a blocked dense Cholesky of the
     trailing block.  ``update_dtype`` (None, torch.float32 or
     torch.bfloat16) rounds the operands of every trailing update.
 
-    ``fn.levels`` / ``fn.tail`` hold the K1 plans; ``fn.e2_saved_flops``
-    counts the row-bounded savings against the full-tile count."""
+    ``fn.levels`` / ``fn.tail`` hold the K1 and K3 plans;
+    ``fn.e2_saved_flops`` counts the row-bounded savings against the
+    full-tile count."""
     T = layout.T
     levels = dense_tail.levels_lo if dense_tail is not None else layout.levels
     tail_s = dense_tail.s if dense_tail is not None else None
     reduced, incoming, tail = regroup_left(levels, layout.blk_col, tail_s)
-    residue = sum(lv.gemm_a.size for lv in reduced)
-    if residue:
-        raise RuntimeError(
-            f"{residue} right-looking residue updates left after "
-            "regroup_left; the port runs every level left-looking"
-        )
+    factored = factored_cols(layout)
+    for lv in reduced:
+        stray = int(np.isin(layout.blk_col[lv.gemm_d], factored).sum())
+        if stray:
+            raise RuntimeError(
+                f"{stray} right-looking residue updates into factored "
+                "columns left after regroup_left; the port runs every "
+                "level left-looking and keeps only Schur-bound residue"
+            )
     rb = (layout.row_lo, layout.row_hi) if layout.row_lo is not None else None
     e2_saved = 0.0
 
@@ -119,12 +134,16 @@ def build_factorize_fn(layout: SolverLayout, device, update_dtype=None,
 
     tens = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
     plan = []
-    for lv, inc in zip(levels, incoming):
+    for lv, inc, res in zip(levels, incoming, reduced):
         ga, gb, gd = inc[:3]
         plan.append(_Level(
             diag=tens(lv.diag), tp=tens(lv.trsm_panel),
             tcpos=tens(np.searchsorted(lv.cols, lv.trsm_col)),
             ll=schedule(ga, gb, gd, "auto") if ga.size else [],
+            schur=pipeline_plan(build_pipeline_schedule(
+                res.gemm_a, res.gemm_b, res.gemm_d, group=_PIPE_GROUP,
+                chunk=_PIPE_CHUNK,
+            ), device) if res.gemm_a.size else [],
         ))
     # dense-tail pre-pass: every update into a tail tile, once; the
     # reference measured per-pair fp32 a reads (bcache) best here
@@ -151,6 +170,8 @@ def build_factorize_fn(layout: SolverLayout, device, update_dtype=None,
                     pool[tp] = torch.matmul(
                         pool[tp], dinv_t[lv.tcpos[lo:lo + _PANEL_CHUNK]]
                     )
+            if lv.schur:
+                gemm_scatter_pipelined(pool, lv.schur, update_dtype)
         if tail_plan:
             gemm_scatter_ll(pool, tail_plan, update_dtype)
         if tail_factor is not None:
@@ -195,17 +216,30 @@ def _build_tail_factor(dense_tail, T, device, update_dtype):
     return tail_factor
 
 
+def factored_cols(layout: SolverLayout) -> np.ndarray:
+    """Sorted block columns that a level factors: every column but the
+    Schur columns of a layout built with ``schur_first_bcol``."""
+    return np.sort(np.concatenate(
+        [np.asarray(lv.cols, np.int64) for lv in layout.levels]
+        or [np.empty(0, np.int64)]
+    ))
+
+
 def build_diag_inverse_fn(layout: SolverLayout, device):
-    """``fn(pool) -> dinv``: the inverse of every diagonal tile, by a
-    batched triangular solve (the reference's ``_tri_inverse_doubling``
-    works around a slow TPU triangular solve)."""
-    diag_idx = torch.as_tensor(
-        layout.lookup(np.arange(layout.nbc), np.arange(layout.nbc)),
-        device=device,
-    )
+    """``fn(pool) -> dinv``: the (nbc, T, T) inverses of the factored
+    diagonal tiles, by a batched triangular solve (the reference's
+    ``_tri_inverse_doubling`` works around a slow TPU triangular solve).
+    A Schur column's diagonal tile holds S, not a triangle: it is neither
+    read nor inverted, and its slot stays zero (no sweep reads it)."""
+    cols = factored_cols(layout)
+    col_t = torch.as_tensor(cols, device=device)
+    diag_idx = torch.as_tensor(layout.lookup(cols, cols), device=device)
+    nbc, T = layout.nbc, layout.T
 
     def fn(pool: torch.Tensor) -> torch.Tensor:
-        return tri_inv_batch(pool[diag_idx]).contiguous()
+        dinv = torch.zeros((nbc, T, T), dtype=pool.dtype, device=pool.device)
+        dinv[col_t] = tri_inv_batch(pool[diag_idx])
+        return dinv
 
     return fn
 
@@ -218,10 +252,8 @@ def factorize(layout: SolverLayout, A_perm: sp.spmatrix, coef_fn, fact_fn,
         sp.coo_matrix(A_perm).data.astype(np.float32), device=device
     )
     pool = fact_fn(coef_fn(vals))
-    diag_of_col = torch.as_tensor(
-        layout.lookup(np.arange(layout.nbc), np.arange(layout.nbc)),
-        device=device,
-    )
+    cols = factored_cols(layout)
+    diag_of_col = torch.as_tensor(layout.lookup(cols, cols), device=device)
     dvals = torch.diagonal(pool[diag_of_col], dim1=-2, dim2=-1)
     if not bool(torch.isfinite(dvals).all()):
         raise FloatingPointError(

@@ -42,6 +42,27 @@ def round_to(x: torch.Tensor, update_dtype) -> torch.Tensor:
     return x.to(update_dtype).to(x.dtype)
 
 
+def check_pool(pool: torch.Tensor) -> None:
+    """The E2 kernels take a contiguous float32 (npool, T, T) pool."""
+    if pool.dtype != torch.float32 or pool.dim() != 3 or not (
+        pool.is_contiguous() and pool.shape[1] == pool.shape[2]
+    ):
+        raise ValueError(
+            "pool must be a contiguous float32 (npool, T, T) tensor, got "
+            f"{pool.dtype} {tuple(pool.shape)}"
+        )
+
+
+def is_bf16(update_dtype) -> bool:
+    """Whether an E2 kernel rounds its operands to bf16 (``update_dtype``
+    bf16) or multiplies them in fp32 (None or float32)."""
+    if update_dtype in (None, torch.float32):
+        return False
+    if update_dtype == torch.bfloat16:
+        return True
+    raise ValueError(f"unsupported update dtype {update_dtype}")
+
+
 def gemm_scatter(pool, ga, gb, gd, update_dtype=None):
     """pool[gd] -= op(pool[ga]) @ op(pool[gb])^T, accumulated over
     duplicate targets, in place; op rounds to ``update_dtype``.

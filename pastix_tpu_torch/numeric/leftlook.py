@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from pastix_tpu_torch import _build
-from pastix_tpu_torch.numeric.kernels import round_to
+from pastix_tpu_torch.numeric.kernels import check_pool, is_bf16, round_to
 
 # segment flags of the reference's step tables
 # (pastix_tpu/numeric/pallas_kernels.py)
@@ -355,24 +355,6 @@ def ll_plan(schedule, device) -> list:
     return out
 
 
-def _check_pool(pool: torch.Tensor) -> None:
-    if pool.dtype != torch.float32 or pool.dim() != 3 or not (
-        pool.is_contiguous() and pool.shape[1] == pool.shape[2]
-    ):
-        raise ValueError(
-            "pool must be a contiguous float32 (npool, T, T) tensor, got "
-            f"{pool.dtype} {tuple(pool.shape)}"
-        )
-
-
-def _is_bf16(update_dtype) -> bool:
-    if update_dtype in (None, torch.float32):
-        return False
-    if update_dtype == torch.bfloat16:
-        return True
-    raise ValueError(f"unsupported update dtype {update_dtype}")
-
-
 def gemm_scatter_ll(pool: torch.Tensor, plan, update_dtype=torch.bfloat16):
     """pool[dst] -= op(a) @ op(b)^T over every chunk of ``plan``, in place.
 
@@ -382,8 +364,8 @@ def gemm_scatter_ll(pool: torch.Tensor, plan, update_dtype=torch.bfloat16):
     (``input_output_aliases``).  A pool on a CUDA device goes through the
     kernel K1, one launch per chunk, in order on the current stream; a
     pool on the CPU through :func:`gemm_scatter_ll_ref`."""
-    _check_pool(pool)
-    bf16 = _is_bf16(update_dtype)
+    check_pool(pool)
+    bf16 = is_bf16(update_dtype)
     if pool.device.type == "cpu":
         return gemm_scatter_ll_ref(pool, plan, update_dtype)
     if pool.device.type != "cuda":
@@ -431,8 +413,8 @@ def gemm_scatter_ll_ref(pool: torch.Tensor, plan, update_dtype=torch.bfloat16):
     bf16 ``bmm`` would round its output on CUDA); a pair's rows outside
     its window [rl, rl + H) are zeroed.  Differs from the kernel only in
     summation order."""
-    _check_pool(pool)
-    _is_bf16(update_dtype)
+    check_pool(pool)
+    is_bf16(update_dtype)
     gemm_scatter_ll.twin_launches += 1
     T = pool.shape[1]
     rows = torch.arange(T, device=pool.device)

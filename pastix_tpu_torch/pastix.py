@@ -2,13 +2,14 @@
 real LLᵗ only).
 
 :class:`Pastix` keeps the reference's step-by-step phases
-(``order → symbfact → analyze → factorize → solve``) and :func:`spsolve`
-its one-call form.  The host phases (ordering, symbolic factorization,
-the supernode-aligned extension) are copies of the reference's methods,
-with the Schur and tracing branches left out; the numeric phases run on
-one device through the port's kernels.  What is not ported raises
-``NotImplementedError`` naming its ``ROADMAP.md`` slice; there are no
-silent fallbacks, and an error on the device propagates.
+(``order → symbfact → analyze → factorize → solve``), its Schur-complement
+calls (``set_schur_unknowns``, ``get_schur``, ``solve_with_schur``) and
+:func:`spsolve` its one-call form.  The host phases (ordering, symbolic
+factorization, the supernode-aligned or Schur extension) are copies of the
+reference's methods, with the tracing branches left out; the numeric
+phases run on one device through the port's kernels.  What is not ported
+raises ``NotImplementedError`` naming its ``ROADMAP.md`` slice; there are
+no silent fallbacks, and an error on the device propagates.
 """
 
 from __future__ import annotations
@@ -18,12 +19,13 @@ import time
 from typing import Optional
 
 import numpy as np
+import scipy.linalg as sla
 import scipy.sparse as sp
 import torch
 
-from pastix_tpu.analyze import SolverLayout, build_layout
-from pastix_tpu.analyze.layout import plan_dense_tail
-from pastix_tpu.config import (
+from pastix_tpu_torch.analyze import SolverLayout, build_layout
+from pastix_tpu_torch.analyze.layout import plan_dense_tail
+from pastix_tpu_torch.config import (
     Factorization,
     IOStrategy,
     PastixConfig,
@@ -32,9 +34,9 @@ from pastix_tpu.config import (
     Symmetry,
     Verbosity,
 )
-from pastix_tpu.order import Order, compute_ordering
-from pastix_tpu.sparse import SparseMatrix
-from pastix_tpu.symbolic import compute_symbolic
+from pastix_tpu_torch.order import Order, compute_ordering
+from pastix_tpu_torch.sparse import SparseMatrix
+from pastix_tpu_torch.symbolic import compute_symbolic
 from pastix_tpu_torch._device import pin_precision, resolve_device, synchronize
 from pastix_tpu_torch.krylov import build_device_refine_fn, build_ell
 from pastix_tpu_torch.numeric.factorize import (
@@ -44,7 +46,14 @@ from pastix_tpu_torch.numeric.factorize import (
     build_factorize_fn,
     factorize as numeric_factorize,
 )
-from pastix_tpu_torch.solve import blocks_to_rhs, build_solve_fn_sweep, rhs_to_blocks
+from pastix_tpu_torch.refine import refine_block
+from pastix_tpu_torch.solve import (
+    blocks_to_rhs,
+    build_fwd_bwd_fns,
+    build_solve_fn_sweep,
+    rhs_to_blocks,
+    run_host,
+)
 
 _UPDATE_DTYPES = {None: None, "float32": torch.float32,
                   "bfloat16": torch.bfloat16}
@@ -57,6 +66,11 @@ def _not_ported(what: str, slice_: str):
 
 
 def _check_config(cfg: PastixConfig) -> None:
+    if not isinstance(cfg, PastixConfig):
+        raise TypeError(
+            "config must be a pastix_tpu_torch.config.PastixConfig, got "
+            f"{type(cfg).__module__}.{type(cfg).__name__}"
+        )
     if cfg.factorization == Factorization.LU:
         raise _not_ported("LU", "slice 2")
     if cfg.factorization in (Factorization.LDLT, Factorization.LDLH):
@@ -69,8 +83,6 @@ def _check_config(cfg: PastixConfig) -> None:
         raise _not_ported(f"compute_dtype={cfg.compute_dtype}", "slice 3")
     if cfg.update_dtype not in _UPDATE_DTYPES:
         raise ValueError(f"unsupported update_dtype {cfg.update_dtype!r}")
-    if cfg.schur:
-        raise _not_ported("Schur", "slice 3")
     if cfg.incomplete:
         raise _not_ported("incomplete (ILU) factorization", "slice 3")
     if cfg.ooc:
@@ -101,6 +113,8 @@ class Pastix:
         self._ext_map: Optional[np.ndarray] = None  # permuted idx -> extended idx
         self._ext_n: int = 0
         self._dense_tail = None
+        self._schur_unknowns: Optional[np.ndarray] = None
+        self._schur_first_bcol: Optional[int] = None
         if A is not None:
             self.set_matrix(A)
 
@@ -136,7 +150,11 @@ class Pastix:
         return self
 
     def set_schur_unknowns(self, unknowns) -> "Pastix":
-        raise _not_ported("Schur", "slice 3")
+        """pastix_setSchurUnknownList equivalent: these dofs are ordered
+        last and left unfactored; get_schur() returns their complement."""
+        self._schur_unknowns = np.unique(np.asarray(unknowns, dtype=np.int64))
+        self.config.schur = True
+        return self
 
     # ------------------------------------------------------------------
     # phase 1: ordering
@@ -151,7 +169,16 @@ class Pastix:
             self.report.order_time = time.perf_counter() - t0
             return self.order_
         pat = self.A.pattern_sym_scipy()
-        if cfg.dof_nbr > 1:
+        if self._schur_unknowns is not None:
+            if cfg.dof_nbr > 1:
+                raise ValueError(
+                    "schur unknowns with dof_nbr > 1 is unsupported: the "
+                    "Schur ordering is per-dof and would break node "
+                    "alignment; expand the unknown list to dofs and use "
+                    "dof_nbr=1"
+                )
+            self.order_ = self._order_with_schur(pat)
+        elif cfg.dof_nbr > 1:
             self.order_ = self._order_with_dof(pat, user_perm)
         else:
             self.order_ = compute_ordering(pat, cfg, user_perm=user_perm)
@@ -192,6 +219,23 @@ class Pastix:
         permtab[peritab] = np.arange(n, dtype=np.int64)
         return Order(permtab, peritab, no.rangtab * d)
 
+    def _order_with_schur(self, pat: sp.csc_matrix) -> Order:
+        """Order non-Schur dofs with ND, append Schur dofs last."""
+        n = self.A.n
+        schur = self._schur_unknowns
+        mask = np.zeros(n, dtype=bool)
+        mask[schur] = True
+        rest = np.flatnonzero(~mask)
+        sub = sp.csc_matrix(pat[rest][:, rest])
+        sub_order = compute_ordering(sub, self.config)
+        peritab = np.concatenate([rest[sub_order.peritab], schur])
+        permtab = np.empty(n, dtype=np.int64)
+        permtab[peritab] = np.arange(n, dtype=np.int64)
+        rt = sub_order.rangtab.tolist()
+        if rt[-1] != n:
+            rt.append(n)
+        return Order(permtab, peritab, np.asarray(rt, dtype=np.int64))
+
     # ------------------------------------------------------------------
     # phase 2: symbolic
     # ------------------------------------------------------------------
@@ -204,7 +248,7 @@ class Pastix:
         self._build_extended_matrix()
         pat_perm = self._pat_perm_ext
         if cfg.io_strategy == IOStrategy.LOAD:
-            from pastix_tpu.symbolic import SymbolMatrix
+            from pastix_tpu_torch.symbolic import SymbolMatrix
 
             self.symbol_ = SymbolMatrix.load(os.path.join(cfg.io_dir, "symbname"))
             self._scalar_info = {
@@ -226,10 +270,11 @@ class Pastix:
             )
         return self.symbol_
 
-    def _aligned_ext_map(self, T: int):
-        """Supernode-aligned extension: amalgamate the ordering's supernodes
-        toward the tile width, then pad each to a multiple of T so no tile
-        straddles a supernode boundary.
+    def _aligned_ext_map(self, T: int, n: Optional[int] = None):
+        """Supernode-aligned extension of the first ``n`` dofs (default:
+        all): amalgamate the ordering's supernodes toward the tile width,
+        then pad each to a multiple of T so no tile straddles a supernode
+        boundary.
 
         This is the blend/splitpart analog for the tile layout (reference
         ``src/blend/src/splitpart.c`` + kass amalgamation — SURVEY.md §2
@@ -237,10 +282,11 @@ class Pastix:
         padded flops ~6x and elimination levels ~10x on 3D problems at the
         cost of identity-padded extra rows (~30%).
         """
-        n = self.A.n
+        n = self.A.n if n is None else n
         rang = self.order_.rangtab
-        if rang is None or rang.size < 2:
-            rang = np.array([0, n], dtype=np.int64)
+        rang = np.array([0], np.int64) if rang is None else rang[rang <= n]
+        if rang[-1] != n:
+            rang = np.append(rang, n)
         widths = np.diff(rang)
         # greedy chain-merge consecutive supernodes toward the configured
         # fraction of the tile width (default T/2; see config field note)
@@ -264,8 +310,8 @@ class Pastix:
         return ext, int(offsets[-1])
 
     def _build_extended_matrix(self):
-        """Permute A and embed into the tile grid (supernode-aligned
-        padding)."""
+        """Permute A and embed into the tile grid: supernode-aligned padding
+        (and, in Schur mode, the Schur dofs start at a tile boundary)."""
         if self._A_perm is not None:
             return
         cfg = self.config
@@ -273,11 +319,27 @@ class Pastix:
         T = cfg.resolve_tile_size(n)
         A_full = self.A.to_scipy().tocoo()
         perm = self.order_.permtab
-        if cfg.align_supernodes:
+        if self._schur_unknowns is not None:
+            # the Schur dofs (ordered last) start at a tile boundary; the
+            # others keep the supernode alignment, which the reference
+            # drops in Schur mode (at poisson_3d(64) that unaligned grid
+            # held 4.5x the tiles and 40x the levels)
+            ns = self._schur_unknowns.size
+            n0 = n - ns
+            if cfg.align_supernodes:
+                ext0, n0p = self._aligned_ext_map(T, n0)
+            else:
+                ext0, n0p = np.arange(n0, dtype=np.int64), -(-n0 // T) * T
+            ext = np.concatenate([ext0, n0p + np.arange(ns, dtype=np.int64)])
+            n_ext = n0p + ns
+            self._schur_first_bcol = n0p // T
+        elif cfg.align_supernodes:
             ext, n_ext = self._aligned_ext_map(T)
+            self._schur_first_bcol = None
         else:
             ext = np.arange(n, dtype=np.int64)
             n_ext = n
+            self._schur_first_bcol = None
         self._ext_map = ext
         self._ext_n = n_ext
         self._tile_size = T
@@ -307,17 +369,21 @@ class Pastix:
 
     def analyze(self) -> SolverLayout:
         """Tile layout, dense-tail plan, and every device table: coefinit
-        indices, the left-looking K1 plans, the K2 sweep plan and the ELL
-        matrix of the refinement."""
+        indices, the left-looking K1 plans, the K3 plans of the Schur
+        residue, the K2 sweep plan and the ELL matrix of the refinement.
+        Schur mode leaves the Schur columns unfactored and has no dense
+        tail (the reference's rule)."""
         cfg = self.config
         if self.symbol_ is None:
             self.symbfact()
         t0 = time.perf_counter()
         dev = self.device
+        use_tail = cfg.dense_tail and self._schur_first_bcol is None
         self.layout = build_layout(
             self._pat_perm_ext,
             self._tile_size,
-            densify_tail_frac=cfg.dense_tail_fill if cfg.dense_tail else 0.0,
+            schur_first_bcol=self._schur_first_bcol,
+            densify_tail_frac=cfg.dense_tail_fill if use_tail else 0.0,
         )
         lay = self.layout
         T = lay.T
@@ -329,7 +395,7 @@ class Pastix:
                 f"{free / 2**30:.2f} GiB free (out-of-core)", "slice 4",
             )
         self._dense_tail = None
-        if cfg.dense_tail:
+        if use_tail:
             # the dense tail holds the (m, m) block plus about two
             # same-sized temps next to the pool: cap m by the free device
             # memory (the reference assumed a 13 GB budget)
@@ -344,7 +410,8 @@ class Pastix:
             lay, dev, update_dtype=upd, dense_tail=self._dense_tail
         )
         self._dinv_fn = build_diag_inverse_fn(lay, dev)
-        self._solve_fn = build_solve_fn_sweep(lay, dev)
+        self._fwd_fn, self._bwd_fn = build_fwd_bwd_fns(lay, dev)
+        self._solve_fn = build_solve_fn_sweep(lay, dev, self._fwd_fn.plan)
         self._refine_fn = build_device_refine_fn(lay, self._solve_fn)
         cols, vals = build_ell(
             sp.coo_matrix(self._A_perm), lay.nbc * T, np.float64
@@ -444,6 +511,11 @@ class Pastix:
         cfg = self.config
         if np.iscomplexobj(np.asarray(b)):
             raise _not_ported("complex right-hand sides", "slice 3")
+        if self._schur_unknowns is not None:
+            raise ValueError(
+                "Schur unknowns are set: their columns are not factored; "
+                "use solve_with_schur(b)"
+            )
         if self.factors is None:
             self.factorize()
         do_refine = cfg.refinement != RefinementMethod.NONE if refine is None else refine
@@ -480,6 +552,92 @@ class Pastix:
                 f"refine: {iters} device iters -> residual "
                 f"{self.report.residual:.3e}"
             )
+        return self._unperm_sol(x_ext)
+
+    # ------------------------------------------------------------------
+    # Schur complement
+    # ------------------------------------------------------------------
+
+    def get_schur(self) -> np.ndarray:
+        """Dense Schur complement of the marked unknowns (pastix_getSchur),
+        fp64 on the host.  Only the Schur tiles leave the device; a
+        diagonal tile holds the full block, and the upper part of S is
+        mirrored from the lower tiles, as the reference does."""
+        if self._schur_unknowns is None:
+            raise ValueError("no Schur unknowns set")
+        if self.factors is None:
+            self.factorize()
+        lay = self.layout
+        T = lay.T
+        ns = self._schur_unknowns.size
+        sb = self._schur_first_bcol
+        nsb = lay.nbc - sb
+        S = np.zeros((nsb * T, nsb * T), dtype=np.float64)
+        idx = np.flatnonzero(lay.blk_col >= sb)
+        tiles = self.factors.pool[
+            torch.as_tensor(idx, device=self.device)
+        ].cpu().numpy()
+        for p, tile in zip(idx, tiles):
+            I, J = lay.blk_row[p] - sb, lay.blk_col[p] - sb
+            S[I * T:(I + 1) * T, J * T:(J + 1) * T] = tile
+            if I != J:
+                S[J * T:(J + 1) * T, I * T:(I + 1) * T] = tile.T
+            else:
+                blk = S[I * T:(I + 1) * T, J * T:(J + 1) * T]
+                S[I * T:(I + 1) * T, J * T:(J + 1) * T] = (
+                    np.tril(blk) + np.tril(blk, -1).T
+                )
+        return S[:ns, :ns]
+
+    def solve_with_schur(self, b: np.ndarray, schur_solve=None) -> np.ndarray:
+        """Full solve when Schur mode is on: the forward sweep on the
+        device, the dense Schur system on the host, the backward sweep on
+        the device, then Richardson refinement with that whole solve as
+        the preconditioner (at most 50 steps, the reference's cap).
+
+        ``schur_solve(S, y) -> x`` solves the dense Schur system on the
+        host; by default S is LU-factored once per call and the factors
+        are reused (the reference calls ``np.linalg.solve`` each time: the
+        same system)."""
+        if self.factors is None:
+            self.factorize()
+        t0 = time.perf_counter()
+        S = self.get_schur()
+        if schur_solve is None:
+            lu = sla.lu_factor(S)
+            solve_s = lambda y: sla.lu_solve(lu, y)
+        else:
+            solve_s = lambda y: schur_solve(S, y)
+        ns = self._schur_unknowns.size
+        sb = self._schur_first_bcol * self.layout.T
+        f = self.factors
+
+        def schur_precond(r):
+            y = run_host(f, r, self._fwd_fn)
+            zs = solve_s(y[sb:sb + ns])
+            y[sb:sb + ns] = zs
+            z = run_host(f, y, self._bwd_fn)
+            z[sb:sb + ns] = zs  # backward must not touch schur rows
+            return z
+
+        b_ext = self._perm_rhs(b)
+        x_ext = schur_precond(b_ext)
+        if self.config.refinement != RefinementMethod.NONE:
+            Ap = self._A_perm
+            one_d = b_ext.ndim == 1
+            res = refine_block(
+                lambda v: Ap @ v,
+                schur_precond,
+                b_ext[:, None] if one_d else b_ext,
+                x_ext[:, None] if one_d else x_ext,
+                eps=self.config.refinement_eps,
+                itermax=min(self.config.refinement_itermax, 50),
+                dtype=np.result_type(Ap.dtype, np.float64).type,
+            )
+            x_ext = res.x[:, 0] if one_d else res.x
+            self.report.refine_iters = res.iterations
+            self.report.residual = res.residual
+        self.report.solve_time = time.perf_counter() - t0
         return self._unperm_sol(x_ext)
 
 

@@ -1,5 +1,5 @@
 """Triangular solve (PyTorch counterpart of ``pastix_tpu/solve.py``, the
-LLᵗ branch of ``build_solve_fn_sweep``).
+LLᵗ branches of ``build_solve_fn_sweep`` and ``build_fwd_bwd_fns``).
 
 ``rhs_to_blocks`` / ``blocks_to_rhs`` are verbatim copies of the host
 helpers in ``pastix_tpu/solve.py`` (that module imports JAX).
@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pastix_tpu.analyze.layout import SolverLayout
+from pastix_tpu_torch.analyze.layout import SolverLayout
 from pastix_tpu_torch.numeric.sweep_kernels import (
     _from_rowvec, _to_rowvec, sweep_bwd, sweep_fwd, sweep_plan,
 )
@@ -33,20 +33,54 @@ def blocks_to_rhs(layout: SolverLayout, xb) -> np.ndarray:
     return x[: layout.n]
 
 
-def build_solve_fn_sweep(layout: SolverLayout, device):
-    """LLᵗ solve through the whole-sweep kernel K2:
-    ``fn(pool, dinv, b) -> x`` with ``b`` a float32 (nbc, T, R) block RHS
-    on ``device``.  The op stream covers every level including the
-    dense-tail columns, whose factored tiles live in the pool.
-    ``fn.plan`` holds the sweep tables."""
-    plan = sweep_plan(layout, device)
+def build_fwd_bwd_fns(layout: SolverLayout, device, plan=None):
+    """Split LLᵗ sweeps through K2: ``fwd(pool, dinv, b) -> L^{-1} b`` and
+    ``bwd(pool, dinv, y) -> L^{-T} y``, each on a float32 (nbc, T, R)
+    block RHS on ``device``.  The Schur path runs them apart (eliminate,
+    dense-solve the Schur system, back-substitute).  Only the levels'
+    columns are swept: the forward sweep updates the Schur rows
+    (``y_s -= L_sc y_c``) but never divides by their diagonal, and the
+    backward sweep reads them and never writes them.  ``fwd.plan`` holds
+    the sweep tables (``plan``, when given, is shared)."""
+    plan = sweep_plan(layout, device) if plan is None else plan
     nbc, T = layout.nbc, layout.T
 
-    def fn(pool: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor):
-        y2 = _to_rowvec(b.to(torch.float32))
-        sweep_fwd(pool, dinv, y2, plan)
-        sweep_bwd(pool, dinv, y2, plan)
-        return _from_rowvec(y2, nbc, T)
+    def sweep(run):
+        def fn(pool: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor):
+            y2 = _to_rowvec(b.to(torch.float32))
+            run(pool, dinv, y2, plan)
+            return _from_rowvec(y2, nbc, T)
 
-    fn.plan = plan
+        fn.plan = plan
+        return fn
+
+    return sweep(sweep_fwd), sweep(sweep_bwd)
+
+
+def run_host(factors, v_perm: np.ndarray, fn) -> np.ndarray:
+    """Apply a sweep of :func:`build_fwd_bwd_fns` to a host (n, [R])
+    permuted vector through the device (fp32 there; the result comes back
+    as fp64): the counterpart of the reference's ``run_fwd`` and
+    ``run_bwd``."""
+    lay, pool = factors.layout, factors.pool
+    vb = torch.as_tensor(rhs_to_blocks(lay, v_perm), device=pool.device)
+    y = fn(pool, factors.dinv, vb).to(torch.float64).cpu().numpy()
+    out = blocks_to_rhs(lay, y)
+    return out if np.asarray(v_perm).ndim > 1 else out[:, 0]
+
+
+def build_solve_fn_sweep(layout: SolverLayout, device, plan=None):
+    """LLᵗ solve through the whole-sweep kernel K2:
+    ``fn(pool, dinv, b) -> x`` with ``b`` a float32 (nbc, T, R) block RHS
+    on ``device``: the forward then the backward sweep of
+    :func:`build_fwd_bwd_fns`.  The op stream covers every level
+    including the dense-tail columns, whose factored tiles live in the
+    pool.  ``fn.plan`` holds the sweep tables (``plan``, when given, is
+    shared)."""
+    fwd, bwd = build_fwd_bwd_fns(layout, device, plan)
+
+    def fn(pool: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor):
+        return bwd(pool, dinv, fwd(pool, dinv, b))
+
+    fn.plan = fwd.plan
     return fn

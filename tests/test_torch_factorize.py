@@ -18,14 +18,15 @@ import jax.numpy as jnp
 
 import pastix_tpu.numeric.leftlook as JLL
 from pastix_tpu.analyze.layout import plan_dense_tail
-from pastix_tpu.config import Factorization, PastixConfig
-from pastix_tpu.generators import poisson_3d
+from pastix_tpu.config import Factorization
 from pastix_tpu.numeric.factorize import (
     build_diag_inverse_fn as ref_diag_inverse_fn,
     build_factorize_fn as ref_factorize_fn,
     coefinit as ref_coefinit,
 )
 
+from pastix_tpu_torch.config import PastixConfig
+from pastix_tpu_torch.generators import poisson_3d
 from pastix_tpu_torch.numeric import factorize as F
 from pastix_tpu_torch.pastix import Pastix
 

@@ -1,6 +1,6 @@
-"""The port imports no JAX and uses no Pallas, torch.compile or fused
-attention.  The import check runs in a subprocess: conftest.py has
-already imported JAX into this one."""
+"""The port imports no JAX, nothing of the JAX package ``pastix_tpu``, and
+uses no Pallas, torch.compile or fused attention.  The import check runs
+in a subprocess: conftest.py has already imported JAX into this one."""
 
 import ast
 import os
@@ -15,14 +15,23 @@ SLICE_MODULES = [
     "pastix_tpu_torch",
     "pastix_tpu_torch._build",
     "pastix_tpu_torch._device",
+    "pastix_tpu_torch.analyze",
+    "pastix_tpu_torch.config",
     "pastix_tpu_torch.convert",
+    "pastix_tpu_torch.generators",
     "pastix_tpu_torch.krylov",
+    "pastix_tpu_torch.native",
     "pastix_tpu_torch.numeric.factorize",
     "pastix_tpu_torch.numeric.kernels",
     "pastix_tpu_torch.numeric.leftlook",
+    "pastix_tpu_torch.numeric.pipelined",
     "pastix_tpu_torch.numeric.sweep_kernels",
+    "pastix_tpu_torch.order",
     "pastix_tpu_torch.pastix",
+    "pastix_tpu_torch.refine",
     "pastix_tpu_torch.solve",
+    "pastix_tpu_torch.sparse",
+    "pastix_tpu_torch.symbolic",
 ]
 
 
@@ -33,8 +42,8 @@ def test_import_leaves_jax_out():
         "    importlib.import_module(m)\n"
         "import pastix_tpu_torch as P\n"
         "P.Pastix, P.spsolve\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith(('jax.', 'jaxlib')))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'pastix_tpu') "
+        "or m.startswith(('jax.', 'jaxlib', 'pastix_tpu.')))\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -66,12 +75,8 @@ def test_source_uses_no_jax_pallas_or_compile(path):
             root = n.split(".")[0]
             assert root not in ("jax", "jaxlib"), f"imports {n}"
             assert "pallas" not in n, f"imports {n}"
-            # the JAX-importing modules of the reference package
-            assert not n.startswith((
-                "pastix_tpu.numeric", "pastix_tpu.pastix", "pastix_tpu.solve",
-                "pastix_tpu.krylov", "pastix_tpu.perf", "pastix_tpu.trace",
-                "pastix_tpu.parallel",
-            )), f"imports {n}"
+            # nothing of the reference package, JAX-free modules included
+            assert root != "pastix_tpu", f"imports {n}"
         if isinstance(node, ast.Attribute):
             assert node.attr not in (
                 "compile", "scaled_dot_product_attention"

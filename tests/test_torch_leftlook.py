@@ -17,8 +17,8 @@ import torch
 import jax.numpy as jnp
 
 import pastix_tpu.numeric.leftlook as JLL
-from pastix_tpu.config import PastixConfig
-from pastix_tpu.generators import poisson_3d
+from pastix_tpu_torch.config import PastixConfig
+from pastix_tpu_torch.generators import poisson_3d
 from pastix_tpu.numeric import kernels as JK
 
 import pastix_tpu_torch.numeric.leftlook as LL

@@ -13,12 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from pastix_tpu.config import Factorization, PastixConfig, RefinementMethod
-from pastix_tpu.generators import poisson_3d
+from pastix_tpu.config import PastixConfig as JPastixConfig
+from pastix_tpu.generators import poisson_3d as j_poisson_3d
 from pastix_tpu.pastix import Pastix as JPastix
 
 import pastix_tpu_torch
+from pastix_tpu_torch.config import Factorization, PastixConfig, RefinementMethod
 from pastix_tpu_torch.convert import factors_from_jax
+from pastix_tpu_torch.generators import poisson_3d
 from pastix_tpu_torch.pastix import Pastix
 
 NX = 12
@@ -32,10 +34,10 @@ def _rel(a, b):
 def pair(request):
     A = poisson_3d(NX)
     b = A.to_scipy() @ np.random.default_rng(7).standard_normal(A.n)
-    cfg = lambda: PastixConfig(tile_size=32, update_dtype=request.param)
-    ref = JPastix(A, cfg())
+    cfg = lambda cls: cls(tile_size=32, update_dtype=request.param)
+    ref = JPastix(j_poisson_3d(NX), cfg(JPastixConfig))
     x_ref = ref.solve(b)
-    port = Pastix(A, cfg(), device="cpu")
+    port = Pastix(A, cfg(PastixConfig), device="cpu")
     port.order()
     port.symbfact()
     port.analyze()
@@ -95,17 +97,30 @@ def test_unported_kinds_raise(kind):
 @pytest.mark.parametrize("cfg", [
     dict(compute_dtype="complex64"), dict(mesh_shape=(2,)), dict(ooc=True),
     dict(incomplete=True), dict(refinement=RefinementMethod.GMRES),
-    dict(schur=True),
+    dict(schur=True, factorization=Factorization.LU),
 ], ids=["complex", "mesh", "ooc", "ilu", "gmres", "schur"])
 def test_unported_options_raise(cfg):
+    """The schur case: Schur with LU is slice 2 (LLᵗ Schur is ported)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md slice"):
         Pastix(poisson_3d(4), PastixConfig(**cfg), device="cpu")
 
 
 def test_schur_unknowns_raise():
+    """Schur unknowns under LDLᵗ name slice 2; under LLᵗ they are taken."""
+    with pytest.raises(NotImplementedError, match="LDLT.*slice 2"):
+        Pastix(poisson_3d(4), PastixConfig(factorization=Factorization.LDLT,
+                                           schur=True),
+               device="cpu").set_schur_unknowns([0, 1])
     s = Pastix(poisson_3d(4), PastixConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Schur"):
-        s.set_schur_unknowns([0, 1])
+    assert s.set_schur_unknowns([1, 0, 1]) is s and s.config.schur
+    np.testing.assert_array_equal(s._schur_unknowns, [0, 1])
+
+
+def test_foreign_config_raises():
+    """A pastix_tpu config would compare its enums unequal to the port's
+    and pass LDLᵗ through as LLᵗ: it is refused."""
+    with pytest.raises(TypeError, match="pastix_tpu_torch.config"):
+        Pastix(poisson_3d(4), JPastixConfig(), device="cpu")
 
 
 def test_not_spd_raises():

@@ -15,7 +15,7 @@ import pastix_tpu.numeric.leftlook as JLL
 import pastix_tpu.numeric.sweep_kernels as JSW
 import pastix_tpu.solve as JSO
 from pastix_tpu.analyze.layout import LevelTables, plan_dense_tail
-from pastix_tpu.config import PastixConfig
+from pastix_tpu.config import PastixConfig as JPastixConfig
 from pastix_tpu.generators import poisson_3d
 from pastix_tpu.pastix import Pastix as JPastix
 
@@ -23,21 +23,23 @@ import pastix_tpu_torch.krylov as KR
 import pastix_tpu_torch.numeric.leftlook as LL
 import pastix_tpu_torch.numeric.sweep_kernels as SW
 import pastix_tpu_torch.solve as SO
+from pastix_tpu_torch.config import PastixConfig
+from pastix_tpu_torch.generators import poisson_3d as port_poisson_3d
 from pastix_tpu_torch.pastix import Pastix
 
 
-def _cfg():
-    return PastixConfig(tile_size=32, update_dtype="bfloat16")
+def _cfg(cls=PastixConfig):
+    return cls(tile_size=32, update_dtype="bfloat16")
 
 
 @pytest.fixture(scope="module")
 def solvers():
     A = poisson_3d(12)
-    ref = JPastix(A, _cfg())
+    ref = JPastix(A, _cfg(JPastixConfig))
     ref.order()
     ref.symbfact()
     ref.analyze()
-    port = Pastix(A, _cfg(), device="cpu")
+    port = Pastix(port_poisson_3d(12), _cfg(), device="cpu")
     port.order()
     port.symbfact()
     port.analyze()

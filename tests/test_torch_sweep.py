@@ -14,8 +14,8 @@ import torch
 import jax.numpy as jnp
 
 import pastix_tpu.numeric.sweep_kernels as JSW
-from pastix_tpu.config import PastixConfig
-from pastix_tpu.generators import poisson_3d
+from pastix_tpu_torch.config import PastixConfig
+from pastix_tpu_torch.generators import poisson_3d
 
 import pastix_tpu_torch.numeric.sweep_kernels as SW
 from pastix_tpu_torch.pastix import Pastix
