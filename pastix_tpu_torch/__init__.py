@@ -4,8 +4,8 @@ The same sparse direct solver on an NVIDIA H100.  The host analysis
 (ordering, symbolic factorization, tile layout, the native C++ library)
 is the package's own copy of ``pastix_tpu``'s; the device side runs in
 PyTorch with hand-written CUDA kernels in place of the Pallas kernels.
-Real LLᵗ runs end to end, the Schur complement included; see ROADMAP.md
-for what follows.
+Real LLᵗ, LDLᵗ and LU run end to end, their Schur complements included;
+see ROADMAP.md for what follows.
 
 The package imports neither JAX nor anything of ``pastix_tpu``.
 """

@@ -22,7 +22,8 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _OUT = os.path.join(_HERE, "_build")
-_SOURCES = ("ll_gemm_scatter.cu", "sweep.cu", "pipelined_gemm_scatter.cu")
+_SOURCES = ("ll_gemm_scatter.cu", "sweep.cu", "pipelined_gemm_scatter.cu",
+            "tile_factor.cu")
 _HEADERS = ("common.cuh",)
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -106,14 +107,16 @@ def get_lib() -> ctypes.CDLL:
         _compile(so_path)
     lib = ctypes.CDLL(so_path)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.pastix_ll_gemm_scatter.argtypes = [P] * 8 + [L, I, I, I, P]
+    lib.pastix_ll_gemm_scatter.argtypes = [P] * 10 + [L, I, I, I, P]
     lib.pastix_ll_gemm_scatter.restype = I
     lib.pastix_sweep_diag.argtypes = [P, P, P, L, I, I, I, P]
     lib.pastix_sweep_diag.restype = I
     lib.pastix_sweep_update.argtypes = [P] * 8 + [L, L, I, I, I, P]
     lib.pastix_sweep_update.restype = I
-    lib.pastix_pipelined_gemm_scatter.argtypes = [P] * 5 + [L, I, I, P]
+    lib.pastix_pipelined_gemm_scatter.argtypes = [P] * 8 + [L, I, I, P]
     lib.pastix_pipelined_gemm_scatter.restype = I
+    lib.pastix_tile_factor.argtypes = [P] * 4 + [L, I, I, ctypes.c_float, P]
+    lib.pastix_tile_factor.restype = I
     lib.pastix_cuda_error.argtypes = [I]
     lib.pastix_cuda_error.restype = ctypes.c_char_p
     _LIB = lib

@@ -20,23 +20,38 @@ from pastix_tpu_torch.numeric.factorize import (
 
 
 def factors_from_jax(factors, device=None) -> Factors:
-    """LLᵗ only, Schur mode included (the pool's Schur tiles hold S).  The
-    inverse diagonal tiles are computed here when the reference did not
-    keep them; the slots of unfactored (Schur) columns are zeroed, as the
-    port's own ``build_diag_inverse_fn`` leaves them."""
+    """Real LLᵗ, LDLᵗ and LU, Schur mode included (the pool's Schur tiles
+    hold S): the pool, the Uᵗ pool (LU) and the pivots (LDLᵗ) are carried
+    across.  The inverse diagonal tiles are computed here when the
+    reference did not keep them; the slots of unfactored (Schur) columns
+    are zeroed, as the port's own ``build_diag_inverse_fn`` leaves
+    them."""
     kind = Factorization[factors.kind.name]
-    if kind != Factorization.LLT:
+    if kind not in (Factorization.LLT, Factorization.LDLT, Factorization.LU):
         raise NotImplementedError(
-            f"{kind} factors: only LLT is ported (ROADMAP.md slice 2)"
+            f"{kind} factors: not ported (ROADMAP.md slice 3)"
         )
     dev = resolve_device(device)
     lay = factors.layout
-    pool = torch.tensor(np.asarray(factors.pool, np.float32), device=dev)
+    tens = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    out = Factors(
+        kind, lay, tens(factors.pool),
+        pool_u=tens(factors.pool_u) if kind == Factorization.LU else None,
+        d=tens(factors.d) if kind == Factorization.LDLT else None,
+        n_static_pivots=int(factors.n_static_pivots),
+    )
     if factors.dinv is None:
-        dinv = build_diag_inverse_fn(lay, dev)(pool)
-    else:
-        dinv = np.array(factors.dinv, np.float32)
-        unfactored = np.setdiff1d(np.arange(lay.nbc), factored_cols(lay))
+        inv = build_diag_inverse_fn(lay, dev, kind)(out.pool)
+        out.dinv, out.dinv_u = inv if kind == Factorization.LU else (inv, None)
+        return out
+    unfactored = np.setdiff1d(np.arange(lay.nbc), factored_cols(lay))
+
+    def kept(dinv):
+        dinv = np.array(dinv, np.float32)
         dinv[unfactored] = 0.0
-        dinv = torch.tensor(dinv, device=dev)
-    return Factors(kind, lay, pool, dinv, int(factors.n_static_pivots))
+        return torch.tensor(dinv, device=dev)
+
+    out.dinv = kept(factors.dinv)
+    if kind == Factorization.LU:
+        out.dinv_u = kept(factors.dinv_u)
+    return out

@@ -5,7 +5,12 @@
 // chunk (pairs sorted by dst on the host), subtract the sum of its pairs'
 // a . b^T, computed from operands cast to the update dtype and
 // accumulated in fp32.  Row-bounded chunks (H < T) touch only rows
-// [rl, rl + H) of the dst tile for each pair.
+// [rl, rl + H) of the dst tile for each pair.  Two variants: scaled
+// (LDL^T), where a's column k is multiplied by the pivot
+// d[gk * T + k] of the pair's source column before the rounding; and
+// cross-pool (LU), where b comes from the other pool: b_src is already a
+// separate operand, so the wrapper passes that pool (or a bf16 cache
+// gathered from it) and a is read from the destination pool.
 //
 // What bounds it on an H100 at T = 128: each full-height pair is
 // 2 T^3 = 4.2 MFLOP against 64 KB (fp32) + 32 KB (bf16) of operand tiles,
@@ -29,7 +34,7 @@ namespace {
 
 constexpr int BK = 32;
 
-template <int T, int BM, typename TA, typename TB, bool ROUND>
+template <int T, int BM, typename TA, typename TB, bool ROUND, bool SCALED>
 __global__ void __launch_bounds__((BM / 4) * (BM / 4))
 ll_gemm_scatter_kernel(float* __restrict__ pool,
                        const TA* __restrict__ a_src,
@@ -38,7 +43,9 @@ ll_gemm_scatter_kernel(float* __restrict__ pool,
                        const int64_t* __restrict__ seg_dst,
                        const int64_t* __restrict__ pair_a,
                        const int64_t* __restrict__ pair_b,
-                       const int64_t* __restrict__ pair_rl, int H) {
+                       const int64_t* __restrict__ pair_rl,
+                       const float* __restrict__ d,
+                       const int64_t* __restrict__ pair_k, int H) {
   constexpr int BN = BM;
   constexpr int NT = (BM / 4) * (BN / 4);
   constexpr int NB = T / BM;
@@ -68,6 +75,7 @@ ll_gemm_scatter_kernel(float* __restrict__ pool,
     if (lo >= hi) continue;  // uniform over the CTA
     const TA* a = a_src + pair_a[p] * TT;
     const TB* b = b_src + pair_b[p] * TT;
+    const float* dk = SCALED ? d + pair_k[p] * T : nullptr;
     for (int k0 = 0; k0 < T; k0 += BK) {
       // LD loads of a and of b per thread, all issued before the first
       // store to shared memory (element e = tid + l NT of the slice)
@@ -76,9 +84,16 @@ ll_gemm_scatter_kernel(float* __restrict__ pool,
       for (int l = 0; l < LD; ++l) {
         const int e = tid + l * NT;
         const int r = r0 + e / BK;
-        av_ld[l] = (r >= lo && r < hi)
-                       ? load_op<ROUND>(a + (int64_t)r * T + k0 + e % BK)
-                       : 0.f;
+        const int kk = k0 + e % BK;
+        if constexpr (SCALED)
+          av_ld[l] = (r >= lo && r < hi)
+                         ? load_scaled<ROUND, true>(a + (int64_t)r * T + kk,
+                                                    __ldg(dk + kk))
+                         : 0.f;
+        else
+          av_ld[l] = (r >= lo && r < hi)
+                         ? load_op<ROUND>(a + (int64_t)r * T + kk)
+                         : 0.f;
         bv_ld[l] = load_op<ROUND>(b + (int64_t)(c0 + e / BK) * T + k0 +
                                   e % BK);
       }
@@ -112,38 +127,46 @@ ll_gemm_scatter_kernel(float* __restrict__ pool,
       dst[(int64_t)(r0 + ty * 4 + u) * T + c0 + tx * 4 + v] -= acc[u][v];
 }
 
-template <int T, typename TA, typename TB, bool ROUND>
+template <int T, typename TA, typename TB, bool ROUND, bool SCALED>
 cudaError_t launch(float* pool, const void* a_src, const void* b_src,
                    const int64_t* seg_ptr, const int64_t* seg_dst,
                    const int64_t* pair_a, const int64_t* pair_b,
-                   const int64_t* pair_rl, int64_t nseg, int H,
+                   const int64_t* pair_rl, const float* d,
+                   const int64_t* pair_k, int64_t nseg, int H,
                    cudaStream_t stream) {
   constexpr int BM = T < 64 ? T : 64;
   constexpr int NB = T / BM;
   dim3 grid((unsigned)nseg, NB * NB);
-  ll_gemm_scatter_kernel<T, BM, TA, TB, ROUND>
+  ll_gemm_scatter_kernel<T, BM, TA, TB, ROUND, SCALED>
       <<<grid, (BM / 4) * (BM / 4), 0, stream>>>(
           pool, (const TA*)a_src, (const TB*)b_src, seg_ptr, seg_dst,
-          pair_a, pair_b, pair_rl, H);
+          pair_a, pair_b, pair_rl, d, pair_k, H);
   return cudaGetLastError();
 }
 
-template <typename TA, typename TB, bool ROUND>
+template <typename TA, typename TB, bool ROUND, bool SCALED>
 cudaError_t dispatch_t(int T, float* pool, const void* a_src,
                        const void* b_src, const int64_t* seg_ptr,
                        const int64_t* seg_dst, const int64_t* pair_a,
                        const int64_t* pair_b, const int64_t* pair_rl,
-                       int64_t nseg, int H, cudaStream_t s) {
+                       const float* d, const int64_t* pair_k, int64_t nseg,
+                       int H, cudaStream_t s) {
   switch (T) {
     case 32:
-      return launch<32, TA, TB, ROUND>(pool, a_src, b_src, seg_ptr, seg_dst,
-                                       pair_a, pair_b, pair_rl, nseg, H, s);
+      return launch<32, TA, TB, ROUND, SCALED>(pool, a_src, b_src, seg_ptr,
+                                               seg_dst, pair_a, pair_b,
+                                               pair_rl, d, pair_k, nseg, H,
+                                               s);
     case 64:
-      return launch<64, TA, TB, ROUND>(pool, a_src, b_src, seg_ptr, seg_dst,
-                                       pair_a, pair_b, pair_rl, nseg, H, s);
+      return launch<64, TA, TB, ROUND, SCALED>(pool, a_src, b_src, seg_ptr,
+                                               seg_dst, pair_a, pair_b,
+                                               pair_rl, d, pair_k, nseg, H,
+                                               s);
     case 128:
-      return launch<128, TA, TB, ROUND>(pool, a_src, b_src, seg_ptr, seg_dst,
-                                        pair_a, pair_b, pair_rl, nseg, H, s);
+      return launch<128, TA, TB, ROUND, SCALED>(pool, a_src, b_src, seg_ptr,
+                                                seg_dst, pair_a, pair_b,
+                                                pair_rl, d, pair_k, nseg, H,
+                                                s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -154,30 +177,44 @@ cudaError_t dispatch_t(int T, float* pool, const void* a_src,
 // variant 0: fp32 update dtype, a and b fp32
 // variant 1: bf16 update dtype, a from the fp32 pool (rounded), b bf16
 // variant 2: bf16 update dtype, a and b bf16
+// d != NULL (variants 0 and 1): a's columns scaled by d[pair_k * T + k]
 extern "C" int pastix_ll_gemm_scatter(
     void* pool, const void* a_src, const void* b_src, const void* seg_ptr,
     const void* seg_dst, const void* pair_a, const void* pair_b,
-    const void* pair_rl, long long nseg, int T, int H, int variant,
-    void* stream) {
+    const void* pair_rl, const void* d, const void* pair_k, long long nseg,
+    int T, int H, int variant, void* stream) {
   if (nseg <= 0) return 0;
   if (H <= 0 || H > T) return (int)cudaErrorInvalidValue;
+  if (d != nullptr && (variant == 2 || pair_k == nullptr))
+    return (int)cudaErrorInvalidValue;
   auto sp = (const int64_t*)seg_ptr;
   auto sd = (const int64_t*)seg_dst;
   auto pa = (const int64_t*)pair_a;
   auto pb = (const int64_t*)pair_b;
   auto pr = (const int64_t*)pair_rl;
+  auto dd = (const float*)d;
+  auto pk = (const int64_t*)pair_k;
   auto s = (cudaStream_t)stream;
   float* P = (float*)pool;
+  const bool sc = d != nullptr;
   switch (variant) {
     case 0:
-      return (int)dispatch_t<float, float, false>(T, P, a_src, b_src, sp, sd,
-                                                  pa, pb, pr, nseg, H, s);
+      return sc ? (int)dispatch_t<float, float, false, true>(
+                      T, P, a_src, b_src, sp, sd, pa, pb, pr, dd, pk, nseg,
+                      H, s)
+                : (int)dispatch_t<float, float, false, false>(
+                      T, P, a_src, b_src, sp, sd, pa, pb, pr, dd, pk, nseg,
+                      H, s);
     case 1:
-      return (int)dispatch_t<float, __nv_bfloat16, true>(
-          T, P, a_src, b_src, sp, sd, pa, pb, pr, nseg, H, s);
+      return sc ? (int)dispatch_t<float, __nv_bfloat16, true, true>(
+                      T, P, a_src, b_src, sp, sd, pa, pb, pr, dd, pk, nseg,
+                      H, s)
+                : (int)dispatch_t<float, __nv_bfloat16, true, false>(
+                      T, P, a_src, b_src, sp, sd, pa, pb, pr, dd, pk, nseg,
+                      H, s);
     case 2:
-      return (int)dispatch_t<__nv_bfloat16, __nv_bfloat16, true>(
-          T, P, a_src, b_src, sp, sd, pa, pb, pr, nseg, H, s);
+      return (int)dispatch_t<__nv_bfloat16, __nv_bfloat16, true, false>(
+          T, P, a_src, b_src, sp, sd, pa, pb, pr, dd, pk, nseg, H, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -47,23 +47,25 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor):
 
 
 def build_device_refine_fn(layout, solve_fn):
-    """``fn(pool, dinv, cols, vals, b, eps, itermax) -> (x, iters)``.
+    """``fn(factors, cols, vals, b, eps, itermax) -> (x, iters)``.
 
-    ``b`` is the (nflat, R) fp64 padded permuted RHS, ``cols``/``vals``
-    the fp64 ELL matrix, all on one device.  Richardson refinement
-    x += M^{-1}(b - A x) from x = M^{-1} b, stopping when
+    ``factors`` is the tuple of the kind's factor tensors that
+    ``solve_fn`` takes (``Factors.solve_args``); ``b`` the (nflat, R) fp64
+    padded permuted RHS, ``cols``/``vals`` the fp64 ELL matrix of the
+    whole ``A_perm`` (unsymmetric for LU), all on one device.  Richardson
+    refinement x += M^{-1}(b - A x) from x = M^{-1} b, stopping when
     ||r||^2 <= eps^2 ||b||^2, when a step fails to cut ||r||^2 by 4
     (the reference's stall check, ``krylov.py`` and ``pastix.py``), or at
     ``itermax`` steps.  One scalar per step goes to the host."""
     nbc, T = layout.nbc, layout.T
 
-    def precond(pool, dinv, r):
-        z = solve_fn(pool, dinv, r.to(torch.float32).view(nbc, T, -1))
+    def precond(factors, r):
+        z = solve_fn(*factors, r.to(torch.float32).view(nbc, T, -1))
         return z.reshape(nbc * T, -1).to(torch.float64)
 
-    def fn(pool, dinv, cols, vals, b, eps, itermax):
+    def fn(factors, cols, vals, b, eps, itermax):
         eps2 = eps * eps * max(float((b * b).sum()), 1e-300)
-        x = precond(pool, dinv, b)
+        x = precond(factors, b)
         r = b - ell_spmv(cols, vals, x)
         it, prev = 0, math.inf
         while it < itermax:
@@ -71,7 +73,7 @@ def build_device_refine_fn(layout, solve_fn):
             if r2 <= eps2 or not r2 < 0.25 * prev:
                 break
             prev = r2
-            x += precond(pool, dinv, r)
+            x += precond(factors, r)
             r = b - ell_spmv(cols, vals, x)
             it += 1
         return x, it

@@ -5,7 +5,10 @@ symbolic/blend in-tree — SURVEY.md sections 1-2); our equivalents compile
 on first use with the system g++ (no pybind11 in this environment) and
 fall back to the pure-Python implementations if no toolchain is present.
 The library is built into ``pastix_tpu_torch/_build/``, never next to
-the sources; :data:`status` says which path ran.
+the sources, with ``-march=native`` under a name keyed by the host CPU
+(:func:`host_key`), so a tree copied to another machine builds its own
+library instead of loading one made for another CPU; :data:`status` says
+which path ran.
 
 Set ``PASTIX_TPU_NO_NATIVE=1`` to force the Python paths.
 """
@@ -13,7 +16,9 @@ Set ``PASTIX_TPU_NO_NATIVE=1`` to force the Python paths.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import sys
 import tempfile
@@ -29,6 +34,29 @@ status = "not tried"
 _SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 _OUT_DIR = os.path.join(os.path.dirname(_SRC_DIR), "_build")
 _SOURCES = ["ordering.cpp", "symbolic.cpp", "etree.cpp", "amd.cpp"]
+
+
+def host_key() -> str:
+    """A short hash of what ``-march=native`` compiles for: the machine
+    architecture and the first CPU's model name and feature flags
+    (``/proc/cpuinfo``; the machine name alone where that is missing)."""
+    info = platform.machine()
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key = line.split(":", 1)[0].strip()
+                if key in ("model name", "flags", "Features"):
+                    info += "\n" + line.strip()
+                elif not line.strip() and info.count("\n"):
+                    break  # end of the first CPU's block
+    except OSError:
+        pass
+    return hashlib.sha256(info.encode()).hexdigest()[:12]
+
+
+def lib_path(key: str) -> str:
+    """Where the library built for host ``key`` lives."""
+    return os.path.join(_OUT_DIR, f"_pastix_native_{key}.so")
 
 
 def _build(so_path: str) -> str:
@@ -71,7 +99,7 @@ def get_lib():
     if os.environ.get("PASTIX_TPU_NO_NATIVE"):
         status = "unavailable: PASTIX_TPU_NO_NATIVE is set"
         return None
-    so_path = os.path.join(_OUT_DIR, "_pastix_native.so")
+    so_path = lib_path(host_key())
     src_mtime = max(
         os.path.getmtime(os.path.join(_SRC_DIR, s)) for s in _SOURCES
     )

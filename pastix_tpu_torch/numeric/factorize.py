@@ -1,5 +1,5 @@
-"""Numeric LLᵗ factorization (PyTorch counterpart of
-``pastix_tpu/numeric/factorize.py``, real LLᵗ only).
+"""Numeric factorization: LLᵗ, LDLᵗ and LU, real (PyTorch counterpart of
+``pastix_tpu/numeric/factorize.py``).
 
 The reference unrolls flop-heavy levels and scans the rest
 (``grouping.group_plan``, which exists to bound XLA program size); levels
@@ -10,6 +10,9 @@ level (or to the dense-tail pre-pass).  The only residue left is the
 updates into Schur columns, which no level factors: each level applies its
 own right after its TRSM (kernel K3), as the reference applies ``p_full``.
 Parity with the reference holds to rounding, not update for update.
+
+LDLᵗ and LU factor the diagonal tiles with static pivoting (kernel K4);
+the number of clamped pivots stays on the device until the end.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from pastix_tpu_torch.numeric.leftlook import (
 from pastix_tpu_torch.numeric.pipelined import (
     build_pipeline_schedule, gemm_scatter_pipelined, pipeline_plan,
 )
+from pastix_tpu_torch.numeric.tile_factor import tile_factor
 
 # panel TRSM chunk (tiles): bounds the (nt, T, T) gather transients, as
 # the reference's _PANEL_CHUNK does
@@ -41,73 +45,120 @@ _LL_GROUP, _LL_CAP = 4, 1024
 _PIPE_GROUP, _PIPE_CHUNK = 2, 8192
 
 
-def build_coefinit_fn(layout: SolverLayout, A_pattern: sp.spmatrix, device):
-    """Device coefinit: ``fn(vals) -> pool`` with ``vals`` the COO data of
-    ``A_pattern`` (``sp.coo_matrix(A_perm).data``) as a float32 tensor on
-    ``device``.  The flat scatter indices are built once per pattern; the
-    lower triangle lands in the pool with an accumulating ``index_put_``
-    and the padded diagonal is set to 1 (reference ``build_coefinit_fn``)."""
+def build_coefinit_fn(layout: SolverLayout, A_pattern: sp.spmatrix, device,
+                      for_lu: bool = False):
+    """Device coefinit: ``fn(vals) -> pool`` (``(pool, pool_u)`` with
+    ``for_lu``) with ``vals`` the COO data of ``A_pattern``
+    (``sp.coo_matrix(A_perm).data``) as a float32 tensor on ``device``.
+    The flat scatter indices are built once per pattern; entries land in
+    the pool with an accumulating ``index_put_`` and the padded diagonal
+    is set to 1 (reference ``build_coefinit_fn``).  Symmetric kinds keep
+    the lower triangle; LU puts the tiles on or below the block diagonal
+    in ``pool`` and stores ``Ut(I, J) = A(J, I)ᵗ`` transposed in
+    ``pool_u``."""
     T = layout.T
     A = sp.coo_matrix(A_pattern)
     i, j = A.row.astype(np.int64), A.col.astype(np.int64)
-    lo = i >= j  # lower triangle only (symmetric storage)
-    p = layout.lookup(i[lo] // T, j[lo] // T)
-    flat = p * (T * T) + (i[lo] % T) * T + (j[lo] % T)
-    sel_t = torch.as_tensor(np.flatnonzero(lo), device=device)
-    flat_t = torch.as_tensor(flat, device=device)
-    pad_t = torch.as_tensor(np.asarray(layout.diag_pad_flat, np.int64),
-                            device=device)
+    tens = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    def flat(sel, rows, cols):
+        p = layout.lookup(rows[sel] // T, cols[sel] // T)
+        return (tens(np.flatnonzero(sel)),
+                tens(p * (T * T) + (rows[sel] % T) * T + (cols[sel] % T)))
+
+    # LU: tile on/below the block diagonal; else the lower triangle
+    lo = (i // T) >= (j // T) if for_lu else i >= j
+    sel_l, flat_l = flat(lo, i, j)
+    sel_u, flat_u = flat(~lo, j, i) if for_lu else (None, None)
+    pad_t = tens(layout.diag_pad_flat)
     numel = layout.npool * T * T
 
-    def fn(vals: torch.Tensor) -> torch.Tensor:
+    def scatter(vals, sel, idx):
         pool = torch.zeros(numel, dtype=torch.float32, device=device)
-        pool.index_put_((flat_t,), vals[sel_t].to(torch.float32),
-                        accumulate=True)
+        pool.index_put_((idx,), vals[sel].to(torch.float32), accumulate=True)
+        return pool
+
+    def fn(vals: torch.Tensor):
+        pool = scatter(vals, sel_l, flat_l)
         pool[pad_t] = 1.0
-        return pool.view(layout.pool_shape)
+        if not for_lu:
+            return pool.view(layout.pool_shape)
+        return (pool.view(layout.pool_shape),
+                scatter(vals, sel_u, flat_u).view(layout.pool_shape))
 
     return fn
 
 
 @dataclasses.dataclass
 class Factors:
-    """Factorization result (LLᵗ): the factored tile pool and the inverse
-    diagonal tiles, as tensors on one device."""
+    """Factorization result, as tensors on one device: the factored tile
+    pool (L tiles; LU: L and the combined diagonal tiles), the Uᵗ pool
+    (LU), the pivots (LDLᵗ) and the inverse diagonal tiles."""
 
     kind: Factorization
     layout: SolverLayout
-    pool: torch.Tensor  # (npool, T, T) L tiles
-    dinv: Optional[torch.Tensor] = None  # (nbc, T, T) inverse diag tiles
+    pool: torch.Tensor  # (npool, T, T) L (or combined LU diag) tiles
+    pool_u: Optional[torch.Tensor] = None  # (npool, T, T) Ut tiles (LU)
+    d: Optional[torch.Tensor] = None  # (nbc, T) pivots (LDLᵗ)
+    dinv: Optional[torch.Tensor] = None  # (nbc, T, T) inverse (unit) lower
+    dinv_u: Optional[torch.Tensor] = None  # (nbc, T, T) inverse upper (LU)
     n_static_pivots: int = 0
+
+    def solve_args(self) -> tuple:
+        """The tensors the kind's sweeps take (``solve.build_fwd_bwd_fns``)."""
+        if self.kind == Factorization.LU:
+            return (self.pool, self.pool_u, self.dinv, self.dinv_u)
+        if self.kind == Factorization.LDLT:
+            return (self.pool, self.dinv, self.d)
+        return (self.pool, self.dinv)
 
 
 @dataclasses.dataclass
 class _Level:
+    cols: torch.Tensor  # the level's block columns
     diag: torch.Tensor  # pool idx of the level's diagonal tiles
     tp: torch.Tensor  # pool idx of its panel tiles
+    tc: torch.Tensor  # each panel's block column
     tcpos: torch.Tensor  # each panel's column position in the level
     ll: list  # LLChunk plan of the updates into this level
     schur: list  # PipeChunk plan of its updates into Schur columns
+    ll_nd: list  # LU: the Ut-side mirror of ll (off-diagonal targets)
+    schur_nd: list  # LU: the Ut-side mirror of schur
 
 
-def build_factorize_fn(layout: SolverLayout, device, update_dtype=None,
-                       dense_tail=None):
-    """The LLᵗ program for this pattern: ``fn(pool) -> pool``, in place,
-    where the reference donates the pool buffer to its jitted program
-    (``pastix_tpu/pastix.py`` ``factorize``).
+def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
+                       update_dtype=None, dense_tail=None):
+    """The program of ``kind`` for this pattern, in place on the pools,
+    where the reference donates them to its jitted program:
 
-    Per level: the incoming left-looking pass (kernel K1), batched
-    Cholesky of the diagonal tiles, the panel TRSM as a matmul with the
-    inverted diagonals, then the level's updates into Schur columns
-    (kernel K3; a layout built with ``schur_first_bcol``).  With
-    ``dense_tail`` (``plan_dense_tail``):
-    the tail pre-pass (K1 again) and a blocked dense Cholesky of the
-    trailing block.  ``update_dtype`` (None, torch.float32 or
-    torch.bfloat16) rounds the operands of every trailing update.
+    - LLᵗ: ``fn(pool) -> pool``;
+    - LDLᵗ: ``fn(pool, eps) -> (pool, d, npiv)``;
+    - LU: ``fn(pool, pool_u, eps) -> (pool, pool_u, npiv)``;
+
+    ``npiv`` the number of clamped pivots, a 0-d int32 device tensor.
+
+    Per level: the incoming left-looking pass (kernel K1; LDLᵗ scales a
+    by the source columns' pivots, LU runs it on ``pool`` with b from
+    ``pool_u`` and again on ``pool_u`` for the off-diagonal mirror), the
+    diagonal tiles (LLᵗ: batched Cholesky; LDLᵗ, LU: kernel K4), the panel
+    TRSM as a matmul with the inverted diagonals (LDLᵗ then divides by
+    d; LU: ``L = A U⁻¹`` and ``Ut = Aᵗ L⁻ᵗ``), then the level's updates
+    into Schur columns (kernel K3, with the same variant as K1; a layout
+    built with ``schur_first_bcol``).  With ``dense_tail``
+    (``plan_dense_tail``, LLᵗ only): the tail pre-pass (K1 again) and a
+    blocked dense Cholesky of the trailing block.  ``update_dtype``
+    (None, torch.float32 or torch.bfloat16) rounds the operands of every
+    trailing update.
 
     ``fn.levels`` / ``fn.tail`` hold the K1 and K3 plans;
     ``fn.e2_saved_flops`` counts the row-bounded savings against the
     full-tile count."""
+    kind = Factorization(kind)
+    if kind not in (Factorization.LLT, Factorization.LDLT, Factorization.LU):
+        raise NotImplementedError(f"{kind} is not ported (ROADMAP.md slice 3)")
+    if dense_tail is not None and kind != Factorization.LLT:
+        raise ValueError("the dense tail is LLᵗ only (the reference's rule)")
+    is_lu, scaled = kind == Factorization.LU, kind == Factorization.LDLT
     T = layout.T
     levels = dense_tail.levels_lo if dense_tail is not None else layout.levels
     tail_s = dense_tail.s if dense_tail is not None else None
@@ -124,52 +175,65 @@ def build_factorize_fn(layout: SolverLayout, device, update_dtype=None,
     rb = (layout.row_lo, layout.row_hi) if layout.row_lo is not None else None
     e2_saved = 0.0
 
-    def schedule(ga, gb, gd, mode):
+    def schedule(ga, gb, gd, gk=None, mode="auto"):
         nonlocal e2_saved
-        sched = build_ll_schedule(ga, gb, gd, group=_LL_GROUP, cap=_LL_CAP,
-                                  mode=mode, rb=rb, T=T)
+        if not ga.size:
+            return []
+        sched = build_ll_schedule(ga, gb, gd, gk=gk, group=_LL_GROUP,
+                                  cap=_LL_CAP, mode=mode, rb=rb, T=T)
         for c in sched:
             e2_saved += c["n_real"] * (T - c["H"]) * 2.0 * T ** 2
         return ll_plan(sched, device)
 
+    def pipe(ga, gb, gd, gk=None):
+        if not ga.size:
+            return []
+        return pipeline_plan(build_pipeline_schedule(
+            ga, gb, gd, gk=gk, group=_PIPE_GROUP, chunk=_PIPE_CHUNK,
+        ), device)
+
     tens = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
     plan = []
     for lv, inc, res in zip(levels, incoming, reduced):
-        ga, gb, gd = inc[:3]
+        ga, gb, gd, gk, nd = inc
+        nd_r = res.gemm_nondiag
         plan.append(_Level(
-            diag=tens(lv.diag), tp=tens(lv.trsm_panel),
+            cols=tens(lv.cols), diag=tens(lv.diag), tp=tens(lv.trsm_panel),
+            tc=tens(lv.trsm_col),
             tcpos=tens(np.searchsorted(lv.cols, lv.trsm_col)),
-            ll=schedule(ga, gb, gd, "auto") if ga.size else [],
-            schur=pipeline_plan(build_pipeline_schedule(
-                res.gemm_a, res.gemm_b, res.gemm_d, group=_PIPE_GROUP,
-                chunk=_PIPE_CHUNK,
-            ), device) if res.gemm_a.size else [],
+            ll=schedule(ga, gb, gd, gk if scaled else None),
+            schur=pipe(res.gemm_a, res.gemm_b, res.gemm_d,
+                       res.gemm_k if scaled else None),
+            ll_nd=schedule(ga[nd], gb[nd], gd[nd]) if is_lu else [],
+            schur_nd=(pipe(res.gemm_a[nd_r], res.gemm_b[nd_r],
+                           res.gemm_d[nd_r]) if is_lu else []),
         ))
     # dense-tail pre-pass: every update into a tail tile, once; the
     # reference measured per-pair fp32 a reads (bcache) best here
     tail_plan = (
-        schedule(*tail[:3], "bcache")
-        if tail is not None and tail[0].size else []
+        schedule(*tail[:3], mode="bcache") if tail is not None else []
     )
     tail_factor = (
         _build_tail_factor(dense_tail, T, device, update_dtype)
         if dense_tail is not None else None
     )
 
-    def fn(pool: torch.Tensor) -> torch.Tensor:
+    def panels(lv):
+        """(tp, tcpos, tc) of the level's panel tiles, in chunks."""
+        for lo in range(0, lv.tp.numel(), _PANEL_CHUNK):
+            sl = slice(lo, lo + _PANEL_CHUNK)
+            yield lv.tp[sl], lv.tcpos[sl], lv.tc[sl]
+
+    def fact_llt(pool: torch.Tensor) -> torch.Tensor:
         for lv in plan:
             if lv.ll:
                 gemm_scatter_ll(pool, lv.ll, update_dtype)
             L = potrf_batch(pool[lv.diag])
             pool[lv.diag] = L
-            nt = lv.tp.numel()
-            if nt:
+            if lv.tp.numel():
                 dinv_t = tri_inv_batch(L).transpose(1, 2)
-                for lo in range(0, nt, _PANEL_CHUNK):
-                    tp = lv.tp[lo:lo + _PANEL_CHUNK]
-                    pool[tp] = torch.matmul(
-                        pool[tp], dinv_t[lv.tcpos[lo:lo + _PANEL_CHUNK]]
-                    )
+                for tp, tcpos, _ in panels(lv):
+                    pool[tp] = torch.matmul(pool[tp], dinv_t[tcpos])
             if lv.schur:
                 gemm_scatter_pipelined(pool, lv.schur, update_dtype)
         if tail_plan:
@@ -178,6 +242,51 @@ def build_factorize_fn(layout: SolverLayout, device, update_dtype=None,
             tail_factor(pool)
         return pool
 
+    def fact_ldlt(pool: torch.Tensor, eps: float):
+        d = torch.ones((layout.nbc, T), dtype=pool.dtype, device=pool.device)
+        npiv = torch.zeros((), dtype=torch.int32, device=pool.device)
+        for lv in plan:
+            if lv.ll:
+                gemm_scatter_ll(pool, lv.ll, update_dtype, d=d)
+            d[lv.cols] = tile_factor(pool, lv.diag, eps, npiv, lu=False)
+            if lv.tp.numel():
+                # L(I, J) = A(I, J) L⁻ᵗ D⁻¹
+                linv_t = tri_inv_batch(pool[lv.diag], unit=True).transpose(1, 2)
+                for tp, tcpos, tc in panels(lv):
+                    pool[tp] = (torch.matmul(pool[tp], linv_t[tcpos])
+                                / d[tc][:, None, :])
+            if lv.schur:
+                gemm_scatter_pipelined(pool, lv.schur, update_dtype, d=d)
+        return pool, d, npiv
+
+    def fact_lu(pool: torch.Tensor, pool_u: torch.Tensor, eps: float):
+        npiv = torch.zeros((), dtype=torch.int32, device=pool.device)
+        for lv in plan:
+            # A(I, K) -= L(I, J) U(J, K) into the L pool (b = Ut tiles),
+            # then the Ut-side mirror for off-diagonal targets
+            if lv.ll:
+                gemm_scatter_ll(pool, lv.ll, update_dtype, src_pool=pool_u)
+            if lv.ll_nd:
+                gemm_scatter_ll(pool_u, lv.ll_nd, update_dtype, src_pool=pool)
+            tile_factor(pool, lv.diag, eps, npiv, lu=True)
+            if lv.tp.numel():
+                D = pool[lv.diag]
+                uinv = tri_inv_batch(D, upper=True)
+                linv_t = tri_inv_batch(D, unit=True).transpose(1, 2)
+                for tp, tcpos, _ in panels(lv):
+                    pool[tp] = torch.matmul(pool[tp], uinv[tcpos])
+                    pool_u[tp] = torch.matmul(pool_u[tp], linv_t[tcpos])
+            if lv.schur:
+                gemm_scatter_pipelined(pool, lv.schur, update_dtype,
+                                       src_pool=pool_u)
+            if lv.schur_nd:
+                gemm_scatter_pipelined(pool_u, lv.schur_nd, update_dtype,
+                                       src_pool=pool)
+        return pool, pool_u, npiv
+
+    fn = {Factorization.LLT: fact_llt, Factorization.LDLT: fact_ldlt,
+          Factorization.LU: fact_lu}[kind]
+    fn.kind = kind
     fn.levels = plan
     fn.tail = tail_plan
     fn.e2_saved_flops = e2_saved
@@ -225,32 +334,56 @@ def factored_cols(layout: SolverLayout) -> np.ndarray:
     ))
 
 
-def build_diag_inverse_fn(layout: SolverLayout, device):
-    """``fn(pool) -> dinv``: the (nbc, T, T) inverses of the factored
-    diagonal tiles, by a batched triangular solve (the reference's
-    ``_tri_inverse_doubling`` works around a slow TPU triangular solve).
-    A Schur column's diagonal tile holds S, not a triangle: it is neither
-    read nor inverted, and its slot stays zero (no sweep reads it)."""
+def build_diag_inverse_fn(layout: SolverLayout, device,
+                          kind=Factorization.LLT):
+    """``fn(pool) -> dinv`` (LU: ``(dinv, dinv_u)``): the (nbc, T, T)
+    inverses of the factored diagonal tiles, by a batched triangular solve
+    (the reference's ``_tri_inverse_doubling`` works around a slow TPU
+    triangular solve): lower for LLᵗ, unit lower for LDLᵗ and LU, and for
+    LU also the upper triangle of the combined tile.  A Schur column's
+    diagonal tile holds S, not a triangle: it is neither read nor
+    inverted, and its slot stays zero (no sweep reads it)."""
+    kind = Factorization(kind)
     cols = factored_cols(layout)
     col_t = torch.as_tensor(cols, device=device)
     diag_idx = torch.as_tensor(layout.lookup(cols, cols), device=device)
     nbc, T = layout.nbc, layout.T
+    unit = kind != Factorization.LLT
 
-    def fn(pool: torch.Tensor) -> torch.Tensor:
-        dinv = torch.zeros((nbc, T, T), dtype=pool.dtype, device=pool.device)
-        dinv[col_t] = tri_inv_batch(pool[diag_idx])
+    def inverse(tiles, upper):
+        dinv = torch.zeros((nbc, T, T), dtype=tiles.dtype, device=tiles.device)
+        dinv[col_t] = tri_inv_batch(tiles, upper=upper,
+                                    unit=unit and not upper)
         return dinv
+
+    def fn(pool: torch.Tensor):
+        tiles = pool[diag_idx]
+        if kind == Factorization.LU:
+            return inverse(tiles, False), inverse(tiles, True)
+        return inverse(tiles, False)
 
     return fn
 
 
 def factorize(layout: SolverLayout, A_perm: sp.spmatrix, coef_fn, fact_fn,
-              device) -> Factors:
+              device, pivot_threshold: float = 1e-14) -> Factors:
     """Host driver: coefinit on the device from the nnz values, run the
-    factorization, then one breakdown check (reference ``factorize``)."""
+    factorization of ``fact_fn.kind``, then one host read (reference
+    ``factorize``): the LLᵗ breakdown check, or the count of clamped
+    pivots, whose threshold is ``pivot_threshold · max|A_perm|``."""
+    kind = fact_fn.kind
     vals = torch.as_tensor(
         sp.coo_matrix(A_perm).data.astype(np.float32), device=device
     )
+    if kind == Factorization.LDLT or kind == Factorization.LU:
+        anorm = float(abs(A_perm).max()) if A_perm.nnz else 1.0
+        eps = pivot_threshold * anorm
+        if kind == Factorization.LU:
+            pool, pool_u, npiv = fact_fn(*coef_fn(vals), eps)
+            return Factors(kind, layout, pool, pool_u=pool_u,
+                           n_static_pivots=int(npiv))
+        pool, d, npiv = fact_fn(coef_fn(vals), eps)
+        return Factors(kind, layout, pool, d=d, n_static_pivots=int(npiv))
     pool = fact_fn(coef_fn(vals))
     cols = factored_cols(layout)
     diag_of_col = torch.as_tensor(layout.lookup(cols, cols), device=device)
@@ -258,7 +391,7 @@ def factorize(layout: SolverLayout, A_perm: sp.spmatrix, coef_fn, fact_fn,
     if not bool(torch.isfinite(dvals).all()):
         raise FloatingPointError(
             "LL^T factorization broke down (NaN/Inf pivot): the matrix is "
-            "not positive definite. LDL^T and LU are not ported yet "
-            "(ROADMAP.md slice 2)."
+            "not positive definite. Use Factorization.LDLT (static "
+            "pivoting) or LU for indefinite or unsymmetric systems."
         )
     return Factors(Factorization.LLT, layout, pool)

@@ -10,7 +10,8 @@ once, at analysis time.
 
 ``gemm_scatter_ll`` launches the hand-written CUDA kernel
 (``csrc/ll_gemm_scatter.cu``) for a pool on a CUDA device and its plain
-twin ``gemm_scatter_ll_ref`` for a pool on the CPU.
+twin ``gemm_scatter_ll_ref`` for a pool on the CPU, in the plain, the
+scaled (``d``, LDLᵗ) and the cross-pool (``src_pool``, LU) variants.
 """
 
 from __future__ import annotations
@@ -21,7 +22,9 @@ import numpy as np
 import torch
 
 from pastix_tpu_torch import _build
-from pastix_tpu_torch.numeric.kernels import check_pool, is_bf16, round_to
+from pastix_tpu_torch.numeric.kernels import (
+    check_pool, check_variant, is_bf16, round_to,
+)
 
 # segment flags of the reference's step tables
 # (pastix_tpu/numeric/pallas_kernels.py)
@@ -313,6 +316,7 @@ class LLChunk:
     a_slot: torch.Tensor  # [n] cache slot of a ("full" mode; else pair_a)
     b_slot: torch.Tensor  # [n] cache slot of b
     rl: torch.Tensor  # [n] first row of each pair's window
+    pair_k: torch.Tensor = None  # [n] source column of each pair (LDLᵗ d)
 
     @property
     def nseg(self) -> int:
@@ -351,28 +355,44 @@ def ll_plan(schedule, device) -> list:
             pair_a=tens(pair_a), pair_b=tens(cu[b_slot]),
             a_slot=tens(a_slot), b_slot=tens(b_slot),
             rl=tens(np.asarray(t["rl"], np.int64)[real]),
+            pair_k=(tens(np.asarray(t["gk"], np.int64)[real])
+                    if "gk" in t else None),
         ))
     return out
 
 
-def gemm_scatter_ll(pool: torch.Tensor, plan, update_dtype=torch.bfloat16):
-    """pool[dst] -= op(a) @ op(b)^T over every chunk of ``plan``, in place.
+def gemm_scatter_ll(pool: torch.Tensor, plan, update_dtype=torch.bfloat16, *,
+                    d=None, src_pool=None):
+    """pool[dst] -= op(a diag(d[gk])) @ op(b)^T over every chunk of
+    ``plan``, in place.
 
     ``op`` rounds to ``update_dtype`` (bf16, or None/fp32 for fp32
-    operands); products accumulate in fp32.  The pool is updated in place
-    where the reference donated it to its kernel
-    (``input_output_aliases``).  A pool on a CUDA device goes through the
-    kernel K1, one launch per chunk, in order on the current stream; a
-    pool on the CPU through :func:`gemm_scatter_ll_ref`."""
+    operands), after the scaling; products accumulate in fp32.  a is read
+    from ``pool``; b from ``src_pool`` when given (the LU cross-pool
+    update), else from ``pool``.  ``d`` (nbc, T) scales a's columns by the
+    pivots of the pair's source column (LDLᵗ; the plan needs ``gk``).
+    The pool is updated in place where the reference donated it to its
+    kernel (``input_output_aliases``).  A pool on a CUDA device goes
+    through the kernel K1, one launch per chunk, in order on the current
+    stream; a pool on the CPU through :func:`gemm_scatter_ll_ref`.
+
+    Unlike the reference, a is never read from the per-chunk operand
+    cache when ``src_pool`` or ``d`` is given: the reference fills that
+    cache from ``src_pool``, so its ``"full"`` mode would read a (an L
+    tile) from the U pool, and it would round a before the scaling."""
     check_pool(pool)
+    check_variant(pool, d, src_pool, plan)
     bf16 = is_bf16(update_dtype)
     if pool.device.type == "cpu":
-        return gemm_scatter_ll_ref(pool, plan, update_dtype)
+        return gemm_scatter_ll_ref(pool, plan, update_dtype, d=d,
+                                   src_pool=src_pool)
     if pool.device.type != "cuda":
         raise ValueError(f"unsupported device {pool.device}")
     lib = _build.get_lib()
     stream = _build.stream_ptr(pool.device)
     T = pool.shape[1]
+    src = pool if src_pool is None else src_pool
+    a_cached = src_pool is None and d is None
     cache = None
     if bf16:
         # per-chunk operand cache, cast once: the reference's Xc
@@ -383,19 +403,21 @@ def gemm_scatter_ll(pool: torch.Tensor, plan, update_dtype=torch.bfloat16):
         if bf16:
             # operand tiles are panels of earlier columns, which no chunk
             # of this list writes: gathering before the launch is exact
-            cache[: c.cu.numel()].copy_(pool.index_select(0, c.cu))
-            if c.mode == "full":
+            cache[: c.cu.numel()].copy_(src.index_select(0, c.cu))
+            if c.mode == "full" and a_cached:
                 variant, a_src, a_idx = 2, cache, c.a_slot
             else:
                 variant, a_src, a_idx = 1, pool, c.pair_a
             b_src, b_idx = cache, c.b_slot
         else:
-            variant, a_src, a_idx, b_src, b_idx = 0, pool, c.pair_a, pool, c.pair_b
+            variant, a_src, a_idx, b_src, b_idx = 0, pool, c.pair_a, src, c.pair_b
         err = lib.pastix_ll_gemm_scatter(
             pool.data_ptr(), a_src.data_ptr(), b_src.data_ptr(),
             c.seg_ptr.data_ptr(), c.seg_dst.data_ptr(), a_idx.data_ptr(),
-            b_idx.data_ptr(), c.rl.data_ptr(), c.nseg, T, c.H, variant,
-            stream,
+            b_idx.data_ptr(), c.rl.data_ptr(),
+            None if d is None else d.data_ptr(),
+            None if d is None else c.pair_k.data_ptr(),
+            c.nseg, T, c.H, variant, stream,
         )
         _build.check(err, "gemm_scatter_ll")
         gemm_scatter_ll.launches += 1
@@ -406,17 +428,20 @@ gemm_scatter_ll.launches = 0  # K1 launches (one per chunk)
 gemm_scatter_ll.twin_launches = 0  # calls of the plain twin
 
 
-def gemm_scatter_ll_ref(pool: torch.Tensor, plan, update_dtype=torch.bfloat16):
+def gemm_scatter_ll_ref(pool: torch.Tensor, plan, update_dtype=torch.bfloat16,
+                        *, d=None, src_pool=None):
     """Plain PyTorch twin of :func:`gemm_scatter_ll`, on any device.
 
-    Operands are rounded to the update dtype and multiplied in fp32 (a
-    bf16 ``bmm`` would round its output on CUDA); a pair's rows outside
-    its window [rl, rl + H) are zeroed.  Differs from the kernel only in
-    summation order."""
+    Operands are scaled, rounded to the update dtype and multiplied in
+    fp32 (a bf16 ``bmm`` would round its output on CUDA); a pair's rows
+    outside its window [rl, rl + H) are zeroed.  Differs from the kernel
+    only in summation order."""
     check_pool(pool)
+    check_variant(pool, d, src_pool, plan)
     is_bf16(update_dtype)
     gemm_scatter_ll.twin_launches += 1
     T = pool.shape[1]
+    src = pool if src_pool is None else src_pool
     rows = torch.arange(T, device=pool.device)
     for c in plan:
         dst = torch.repeat_interleave(
@@ -424,12 +449,15 @@ def gemm_scatter_ll_ref(pool: torch.Tensor, plan, update_dtype=torch.bfloat16):
         )
         for lo in range(0, c.n_pairs, _REF_BATCH):
             sl = slice(lo, lo + _REF_BATCH)
-            a = round_to(pool[c.pair_a[sl]], update_dtype)
+            a = pool[c.pair_a[sl]]
+            if d is not None:
+                a = a * d[c.pair_k[sl]][:, None, :]
+            a = round_to(a, update_dtype)
             if c.H < T:
                 rl = c.rl[sl, None]
                 win = (rows[None, :] >= rl) & (rows[None, :] < rl + c.H)
                 a = a * win[:, :, None]
-            b = round_to(pool[c.pair_b[sl]], update_dtype)
+            b = round_to(src[c.pair_b[sl]], update_dtype)
             pool.index_add_(0, dst[sl], torch.bmm(a, b.transpose(1, 2)),
                             alpha=-1.0)
     return pool

@@ -10,10 +10,12 @@ at analysis time.
 
 ``gemm_scatter_pipelined`` launches the hand-written CUDA kernel
 (``csrc/pipelined_gemm_scatter.cu``) for a pool on a CUDA device and its
-plain twin ``gemm_scatter_pipelined_ref`` for a pool on the CPU.  Only the
-plain variant is ported: the LDLᵗ scaling (``d``), the LU cross-pool
-(``src_pool``) and the TPU's compact and packed operand streams (``xab``,
-``compact``, ``ab_pack``) come with slice 2 (ROADMAP.md).
+plain twin ``gemm_scatter_pipelined_ref`` for a pool on the CPU, in the
+plain, the scaled (``d``, LDLᵗ) and the cross-pool (``src_pool``, LU)
+variants.  The TPU's compact and packed operand streams (``xab``,
+``compact``, ``ab_pack``) are formats of the reference's right-looking
+stream path, which the port's left-looking plan never produces; they
+raise (ROADMAP.md B3).
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ import numpy as np
 import torch
 
 from pastix_tpu_torch import _build
-from pastix_tpu_torch.numeric.kernels import check_pool, is_bf16, round_to
+from pastix_tpu_torch.numeric.kernels import (
+    check_pool, check_variant, is_bf16, round_to,
+)
 
 # pairs per batched product of the plain twin (bounds its transients)
 _REF_BATCH = 4096
@@ -161,6 +165,7 @@ class PipeChunk:
     seg_dst: torch.Tensor  # [nseg] pool index of each segment's dst tile
     pair_a: torch.Tensor  # [n] pool index of a
     pair_b: torch.Tensor  # [n] pool index of b
+    pair_k: torch.Tensor = None  # [n] source column of each pair (LDLᵗ d)
 
     @property
     def nseg(self) -> int:
@@ -189,49 +194,58 @@ def pipeline_plan(schedule, device) -> list:
             seg_dst=tens(gd[starts]),
             pair_a=tens(np.asarray(t["ga"])[valid]),
             pair_b=tens(np.asarray(t["gb"])[valid]),
+            pair_k=(tens(np.asarray(t["gk"])[valid]) if "gk" in t else None),
         ))
     return out
 
 
-def _refuse_variants(d, src_pool, xab, compact, ab_pack) -> None:
-    for name, v in (("d (LDLT scaling)", d), ("src_pool (LU)", src_pool),
-                    ("xab", xab), ("compact", compact),
+def _refuse_variants(xab, compact, ab_pack) -> None:
+    for name, v in (("xab", xab), ("compact", compact),
                     ("ab_pack", ab_pack or None)):
         if v is not None:
             raise NotImplementedError(
-                f"gemm_scatter_pipelined: the {name} variant is not ported "
-                "yet (ROADMAP.md slice 2)"
+                f"gemm_scatter_pipelined: the {name} operand stream is a "
+                "format of the reference's right-looking stream path, which "
+                "the port does not produce; not ported (ROADMAP.md B3)"
             )
 
 
 def gemm_scatter_pipelined(pool: torch.Tensor, plan, update_dtype=None, *,
                            d=None, src_pool=None, xab=None, compact=None,
                            ab_pack=False):
-    """pool[gd] -= op(pool[ga]) @ op(pool[gb])^T over every chunk of
-    ``plan`` (:func:`pipeline_plan`), in place.
+    """pool[gd] -= op(pool[ga] diag(d[gk])) @ op(src[gb])^T over every
+    chunk of ``plan`` (:func:`pipeline_plan`), in place.
 
     ``op`` rounds to ``update_dtype`` (bf16, or None/fp32 for fp32
-    operands); products accumulate in fp32.  The reference splits fp32
-    operands into three bf16 passes (its TPU has no fp32 matrix unit);
-    the kernel multiplies them in fp32 instead (ROADMAP.md C).  A pool on
-    a CUDA device goes through the kernel K3, one launch per chunk, in
-    order on the current stream; a pool on the CPU through
+    operands), after the scaling; products accumulate in fp32.  b is read
+    from ``src_pool`` when given (the LU cross-pool update), else from
+    ``pool``; ``d`` (nbc, T) scales a's columns by the pivots of the
+    pair's source column (LDLᵗ; the plan needs ``gk``).  The reference
+    splits fp32 operands into three bf16 passes (its TPU has no fp32
+    matrix unit); the kernel multiplies them in fp32 instead (ROADMAP.md
+    C).  A pool on a CUDA device goes through the kernel K3, one launch
+    per chunk, in order on the current stream; a pool on the CPU through
     :func:`gemm_scatter_pipelined_ref`."""
-    _refuse_variants(d, src_pool, xab, compact, ab_pack)
+    _refuse_variants(xab, compact, ab_pack)
     check_pool(pool)
+    check_variant(pool, d, src_pool, plan)
     bf16 = is_bf16(update_dtype)
     if pool.device.type == "cpu":
-        return gemm_scatter_pipelined_ref(pool, plan, update_dtype)
+        return gemm_scatter_pipelined_ref(pool, plan, update_dtype, d=d,
+                                          src_pool=src_pool)
     if pool.device.type != "cuda":
         raise ValueError(f"unsupported device {pool.device}")
     lib = _build.get_lib()
     stream = _build.stream_ptr(pool.device)
     T = pool.shape[1]
+    src = pool if src_pool is None else src_pool
     for c in plan:
         err = lib.pastix_pipelined_gemm_scatter(
-            pool.data_ptr(), c.seg_ptr.data_ptr(), c.seg_dst.data_ptr(),
-            c.pair_a.data_ptr(), c.pair_b.data_ptr(), c.nseg, T, int(bf16),
-            stream,
+            pool.data_ptr(), src.data_ptr(), c.seg_ptr.data_ptr(),
+            c.seg_dst.data_ptr(), c.pair_a.data_ptr(), c.pair_b.data_ptr(),
+            None if d is None else d.data_ptr(),
+            None if d is None else c.pair_k.data_ptr(),
+            c.nseg, T, int(bf16), stream,
         )
         _build.check(err, "gemm_scatter_pipelined")
         gemm_scatter_pipelined.launches += 1
@@ -242,23 +256,30 @@ gemm_scatter_pipelined.launches = 0  # K3 launches (one per chunk)
 gemm_scatter_pipelined.twin_launches = 0  # calls of the plain twin
 
 
-def gemm_scatter_pipelined_ref(pool: torch.Tensor, plan, update_dtype=None):
+def gemm_scatter_pipelined_ref(pool: torch.Tensor, plan, update_dtype=None,
+                               *, d=None, src_pool=None):
     """Plain PyTorch twin of :func:`gemm_scatter_pipelined`, on any device.
 
-    Operands are rounded to the update dtype and multiplied in fp32, full
-    tiles (B3 has no row bounds); differs from the kernel only in
-    summation order.  Chunks run in order, as the kernel's launches do."""
+    Operands are scaled, rounded to the update dtype and multiplied in
+    fp32, full tiles (B3 has no row bounds); differs from the kernel only
+    in summation order.  Chunks run in order, as the kernel's launches
+    do."""
     check_pool(pool)
+    check_variant(pool, d, src_pool, plan)
     is_bf16(update_dtype)
     gemm_scatter_pipelined.twin_launches += 1
+    src = pool if src_pool is None else src_pool
     for c in plan:
         dst = torch.repeat_interleave(
             c.seg_dst, c.seg_ptr[1:] - c.seg_ptr[:-1]
         )
         for lo in range(0, c.n_pairs, _REF_BATCH):
             sl = slice(lo, lo + _REF_BATCH)
-            a = round_to(pool[c.pair_a[sl]], update_dtype)
-            b = round_to(pool[c.pair_b[sl]], update_dtype)
+            a = pool[c.pair_a[sl]]
+            if d is not None:
+                a = a * d[c.pair_k[sl]][:, None, :]
+            a = round_to(a, update_dtype)
+            b = round_to(src[c.pair_b[sl]], update_dtype)
             pool.index_add_(0, dst[sl], torch.bmm(a, b.transpose(1, 2)),
                             alpha=-1.0)
     return pool

@@ -219,20 +219,31 @@ def _check(pool, dinv, y2, plan):
     return y2.shape[0] // nbc
 
 
-def run_sweep(pool, dinv, y2, plan, key):
+def _trans(key, lu):
+    """(update, diag) phases transposed?  The forward sweep reads tiles
+    as stored, the backward sweep transposed; the LU backward sweep
+    (U pool, ``dinv_u`` = U⁻¹ of the diagonal) keeps its diagonal
+    untransposed (the reference's ``cu=0, cd=1``)."""
+    bwd = key == "bwd"
+    return int(bwd), int(bwd and not lu)
+
+
+def run_sweep(pool, dinv, y2, plan, key, lu=False):
     """One sweep of ``y2`` (nbc*R, T) in place; ``key`` "fwd" applies
-    L^{-1}, "bwd" applies L^{-T}.  On a CUDA device: kernel K2, one call
-    per level phase (an update phase is two launches: partial sums, then
-    their fixed-order reduction into y), in order on the current stream.
-    On the CPU: the twin :func:`run_sweep_ref`."""
+    L^{-1}, "bwd" applies L^{-T}, or U^{-1} with ``lu`` (``pool`` the Uᵗ
+    tiles, ``dinv`` the inverse upper diagonal tiles).  On a CUDA device:
+    kernel K2, one call per level phase (an update phase is two launches:
+    partial sums, then their fixed-order reduction into y), in order on
+    the current stream.  On the CPU: the twin :func:`run_sweep_ref`."""
     R = _check(pool, dinv, y2, plan)
     if y2.device.type == "cpu":
-        return run_sweep_ref(pool, dinv, y2, plan, key)
+        return run_sweep_ref(pool, dinv, y2, plan, key, lu)
     if y2.device.type != "cuda":
         raise ValueError(f"unsupported device {y2.device}")
     lib = _build.get_lib()
     stream = _build.stream_ptr(y2.device)
-    T, trans = plan["T"], int(key == "bwd")
+    T = plan["T"]
+    trans_upd, trans_diag = _trans(key, lu)
     nsub_max = max((ph.sub_ptr.numel() - 1 for ph in plan[key]
                     if ph.kind == "upd"), default=0)
     partial = torch.empty(nsub_max * R * T, dtype=torch.float32,
@@ -241,7 +252,7 @@ def run_sweep(pool, dinv, y2, plan, key):
         if ph.kind == "diag":
             err = lib.pastix_sweep_diag(
                 y2.data_ptr(), dinv.data_ptr(), ph.cols.data_ptr(),
-                ph.cols.numel(), T, R, trans, stream,
+                ph.cols.numel(), T, R, trans_diag, stream,
             )
         else:
             err = lib.pastix_sweep_update(
@@ -249,7 +260,7 @@ def run_sweep(pool, dinv, y2, plan, key):
                 ph.sub_ptr.data_ptr(), ph.seg_sub_ptr.data_ptr(),
                 ph.seg_dst.data_ptr(), ph.op_tile.data_ptr(),
                 ph.op_src.data_ptr(), ph.sub_ptr.numel() - 1,
-                ph.seg_dst.numel(), T, R, trans, stream,
+                ph.seg_dst.numel(), T, R, trans_upd, stream,
             )
         _build.check(err, f"sweep {key} {ph.kind}")
         run_sweep.launches += 1
@@ -260,18 +271,21 @@ run_sweep.launches = 0  # K2 launches (one per level phase)
 run_sweep.twin_launches = 0  # calls of the plain twin
 
 
-def run_sweep_ref(pool, dinv, y2, plan, key):
+def run_sweep_ref(pool, dinv, y2, plan, key, lu=False):
     """Plain PyTorch twin of :func:`run_sweep`, on any device; fp32
     arithmetic, summation order aside the same as the kernel."""
     R = _check(pool, dinv, y2, plan)
     run_sweep.twin_launches += 1
     nbc, T = plan["nbc"], plan["T"]
     Y = y2.view(nbc, R, T)
-    # fwd: M(i, k) = tile[i, k]; bwd: the transpose
-    eq = "nik,nrk->nri" if key == "fwd" else "nki,nrk->nri"
+    # M(i, k) = tile[i, k], or the transpose
+    eqs = ("nik,nrk->nri", "nki,nrk->nri")
+    trans_upd, trans_diag = _trans(key, lu)
+    eq = eqs[trans_upd]
     for ph in plan[key]:
         if ph.kind == "diag":
-            Y[ph.cols] = torch.einsum(eq, dinv[ph.cols], Y[ph.cols])
+            Y[ph.cols] = torch.einsum(eqs[trans_diag], dinv[ph.cols],
+                                      Y[ph.cols])
             continue
         for lo in range(0, ph.op_tile.numel(), _REF_BATCH):
             sl = slice(lo, lo + _REF_BATCH)
@@ -287,6 +301,9 @@ def sweep_fwd(pool, dinv, y2, plan):
     return run_sweep(pool, dinv, y2, plan, "fwd")
 
 
-def sweep_bwd(pool, dinv, y2, plan):
-    """y2 <- L^{-T} y2 (row-vector layout), in place."""
-    return run_sweep(pool, dinv, y2, plan, "bwd")
+def sweep_bwd(pool, dinv, y2, plan, lu=False):
+    """Symmetric kinds: y2 <- L^{-T} y2 (row-vector layout), in place.
+    LU: y2 <- U^{-1} y2 with ``pool``/``dinv`` the Uᵗ tiles and the
+    inverse upper diagonal tiles (updates transposed as stored, the
+    diagonal untransposed)."""
+    return run_sweep(pool, dinv, y2, plan, "bwd", lu)

@@ -1,5 +1,5 @@
 """Top-level solver API of the port (counterpart of ``pastix_tpu/pastix.py``,
-real LLᵗ only).
+real LLᵗ, LDLᵗ and LU).
 
 :class:`Pastix` keeps the reference's step-by-step phases
 (``order → symbfact → analyze → factorize → solve``), its Schur-complement
@@ -71,10 +71,8 @@ def _check_config(cfg: PastixConfig) -> None:
             "config must be a pastix_tpu_torch.config.PastixConfig, got "
             f"{type(cfg).__module__}.{type(cfg).__name__}"
         )
-    if cfg.factorization == Factorization.LU:
-        raise _not_ported("LU", "slice 2")
-    if cfg.factorization in (Factorization.LDLT, Factorization.LDLH):
-        raise _not_ported(f"{cfg.factorization.name}", "slice 2")
+    if cfg.factorization == Factorization.LDLH:
+        raise _not_ported("LDLH (Hermitian)", "slice 3")
     if np.issubdtype(np.dtype(cfg.compute_dtype), np.complexfloating) or (
         cfg.symmetry == Symmetry.HERMITIAN
     ):
@@ -131,9 +129,10 @@ class Pastix:
             S = sp.csc_matrix(A)
             if np.iscomplexobj(S.data):
                 raise _not_ported("complex matrices", "slice 3")
-            if cfg.check_matrix:
-                # pastix_checkMatrix: LLᵗ demands a numerically symmetric
-                # matrix — fail loudly, not garbage
+            sym = cfg.factorization != Factorization.LU
+            if sym and cfg.check_matrix:
+                # pastix_checkMatrix: symmetric factorizations demand a
+                # numerically symmetric matrix — fail loudly, not garbage
                 D = abs(S - S.T)
                 if D.nnz and D.max() > 1e-12 * abs(S).max():
                     raise ValueError(
@@ -142,7 +141,7 @@ class Pastix:
                         f"but {cfg.factorization} requires it; "
                         "use Factorization.LU for unsymmetric systems"
                     )
-            self.A = SparseMatrix.from_scipy(S, symmetric_storage=True)
+            self.A = SparseMatrix.from_scipy(S, symmetric_storage=sym)
         if np.iscomplexobj(self.A.values):
             raise _not_ported("complex matrices", "slice 3")
         self.report.n = self.A.n
@@ -253,7 +252,9 @@ class Pastix:
             self.symbol_ = SymbolMatrix.load(os.path.join(cfg.io_dir, "symbname"))
             self._scalar_info = {
                 "nnz_l_exact": self.symbol_.nnz_l(),
-                "flops_exact": self.symbol_.fact_flops("llt"),
+                "flops_exact": self.symbol_.fact_flops(
+                    "lu" if cfg.factorization == Factorization.LU else "llt"
+                ),
             }
         else:
             self.symbol_, self._scalar_info = compute_symbolic(pat_perm, self.order_, cfg)
@@ -262,6 +263,14 @@ class Pastix:
         self.report.symbfact_time = time.perf_counter() - t0
         self.report.nnz_l_exact = int(self._scalar_info["nnz_l_exact"])
         self.report.fact_flops = float(self._scalar_info["flops_exact"])
+        if (
+            cfg.factorization == Factorization.LU
+            and "parent" in self._scalar_info
+        ):
+            # DPARM_FACT_FLOPS convention: GETRF computes both triangles,
+            # twice the Cholesky count of the scalar cost model
+            # (SymbolMatrix.fact_flops("lu") already doubles)
+            self.report.fact_flops *= 2.0
         self.report.fill_ratio = self.report.nnz_l_exact / max(1, self.A.nnz)
         if cfg.verbosity >= Verbosity.YES:
             print(
@@ -371,27 +380,32 @@ class Pastix:
         """Tile layout, dense-tail plan, and every device table: coefinit
         indices, the left-looking K1 plans, the K3 plans of the Schur
         residue, the K2 sweep plan and the ELL matrix of the refinement.
-        Schur mode leaves the Schur columns unfactored and has no dense
-        tail (the reference's rule)."""
+        Schur mode leaves the Schur columns unfactored; the dense tail is
+        LLᵗ only and off in Schur mode (the reference's rules)."""
         cfg = self.config
         if self.symbol_ is None:
             self.symbfact()
         t0 = time.perf_counter()
         dev = self.device
-        use_tail = cfg.dense_tail and self._schur_first_bcol is None
+        kind = cfg.factorization
+        is_lu = kind == Factorization.LU
+        use_tail = (cfg.dense_tail and self._schur_first_bcol is None
+                    and kind == Factorization.LLT)
         self.layout = build_layout(
             self._pat_perm_ext,
             self._tile_size,
+            for_lu=is_lu,
             schur_first_bcol=self._schur_first_bcol,
             densify_tail_frac=cfg.dense_tail_fill if use_tail else 0.0,
         )
         lay = self.layout
         T = lay.T
-        pool_bytes = lay.npool * T * T * 4
+        pool_bytes = lay.npool * T * T * 4 * (2 if is_lu else 1)
         free = self._free_device_bytes()
         if free is not None and pool_bytes > free:
             raise _not_ported(
-                f"a tile pool of {pool_bytes / 2**30:.2f} GiB on {dev} with "
+                f"{'two tile pools' if is_lu else 'a tile pool'} of "
+                f"{pool_bytes / 2**30:.2f} GiB on {dev} with "
                 f"{free / 2**30:.2f} GiB free (out-of-core)", "slice 4",
             )
         self._dense_tail = None
@@ -405,13 +419,14 @@ class Pastix:
                 m_cap = min(m_cap, int(np.sqrt(room / (3 * 4))))
             self._dense_tail = plan_dense_tail(lay, max_m=m_cap)
         upd = _UPDATE_DTYPES[cfg.update_dtype]
-        self._coef_fn = build_coefinit_fn(lay, self._A_perm, dev)
+        self._coef_fn = build_coefinit_fn(lay, self._A_perm, dev, for_lu=is_lu)
         self._fact_fn = build_factorize_fn(
-            lay, dev, update_dtype=upd, dense_tail=self._dense_tail
+            lay, dev, kind, update_dtype=upd, dense_tail=self._dense_tail
         )
-        self._dinv_fn = build_diag_inverse_fn(lay, dev)
-        self._fwd_fn, self._bwd_fn = build_fwd_bwd_fns(lay, dev)
-        self._solve_fn = build_solve_fn_sweep(lay, dev, self._fwd_fn.plan)
+        self._dinv_fn = build_diag_inverse_fn(lay, dev, kind)
+        self._fwd_fn, self._bwd_fn = build_fwd_bwd_fns(lay, dev, kind)
+        self._solve_fn = build_solve_fn_sweep(lay, dev, kind,
+                                              self._fwd_fn.plan)
         self._refine_fn = build_device_refine_fn(lay, self._solve_fn)
         cols, vals = build_ell(
             sp.coo_matrix(self._A_perm), lay.nbc * T, np.float64
@@ -431,13 +446,14 @@ class Pastix:
         )
         self.report.nnz_l = lay.npool * T * T
         self.report.fact_flops_padded = (
-            lay.padded_flops("llt") - self._fact_fn.e2_saved_flops
+            lay.padded_flops("lu" if is_lu else "llt")
+            - self._fact_fn.e2_saved_flops
         )
         if self.report.fact_flops > 0:
             self.report.padding_waste = (
                 self.report.fact_flops_padded / self.report.fact_flops - 1.0
             )
-        self.report.memory_bytes = lay.memory_bytes(dtype_bytes=4)
+        self.report.memory_bytes = lay.memory_bytes(dtype_bytes=4, lu=is_lu)
         self.report.memory_terms = self.report.memory_bytes // 4
         if cfg.verbosity >= Verbosity.YES:
             print(
@@ -453,17 +469,23 @@ class Pastix:
     # ------------------------------------------------------------------
 
     def factorize(self) -> Factors:
-        """Coefinit, the LLᵗ factorization and the inverse diagonal tiles,
-        on the device; returns when the device has finished."""
+        """Coefinit, the factorization of the configured kind and the
+        inverse diagonal tiles, on the device; returns when the device has
+        finished.  LDLᵗ and LU clamp pivots below
+        ``static_pivoting_threshold · max|A|`` and report their number in
+        ``report.static_pivots``."""
         cfg = self.config
         if self.layout is None:
             self.analyze()
         t0 = time.perf_counter()
-        self.factors = numeric_factorize(
+        f = self.factors = numeric_factorize(
             self.layout, self._A_perm, self._coef_fn, self._fact_fn,
-            self.device,
+            self.device, pivot_threshold=cfg.static_pivoting_threshold,
         )
-        self.factors.dinv = self._dinv_fn(self.factors.pool)
+        if f.kind == Factorization.LU:
+            f.dinv, f.dinv_u = self._dinv_fn(f.pool)
+        else:
+            f.dinv = self._dinv_fn(f.pool)
         synchronize(self.device)
         self.report.fact_time = time.perf_counter() - t0
         self.report.static_pivots = self.factors.n_static_pivots
@@ -528,12 +550,12 @@ class Pastix:
         ).reshape(nflat, -1)
         if do_refine:
             x, iters = self._refine_fn(
-                f.pool, f.dinv, *self._ell, bb, float(cfg.refinement_eps),
+                f.solve_args(), *self._ell, bb, float(cfg.refinement_eps),
                 min(cfg.refinement_itermax, 60),
             )
         else:
             x, iters = self._solve_fn(
-                f.pool, f.dinv, bb.view(lay.nbc, lay.T, -1)
+                *f.solve_args(), bb.view(lay.nbc, lay.T, -1)
             ), 0
         xb = x.reshape(lay.nbc, lay.T, -1).to(torch.float64).cpu().numpy()
         x_ext = blocks_to_rhs(lay, xb)
@@ -560,9 +582,10 @@ class Pastix:
 
     def get_schur(self) -> np.ndarray:
         """Dense Schur complement of the marked unknowns (pastix_getSchur),
-        fp64 on the host.  Only the Schur tiles leave the device; a
-        diagonal tile holds the full block, and the upper part of S is
-        mirrored from the lower tiles, as the reference does."""
+        fp64 on the host.  Only the Schur tiles leave the device.  As the
+        reference does: under LU a diagonal tile holds the full block and
+        the upper blocks of S come from the Uᵗ pool; under LLᵗ and LDLᵗ
+        the upper part of S is mirrored from the lower triangle."""
         if self._schur_unknowns is None:
             raise ValueError("no Schur unknowns set")
         if self.factors is None:
@@ -574,15 +597,16 @@ class Pastix:
         nsb = lay.nbc - sb
         S = np.zeros((nsb * T, nsb * T), dtype=np.float64)
         idx = np.flatnonzero(lay.blk_col >= sb)
-        tiles = self.factors.pool[
-            torch.as_tensor(idx, device=self.device)
-        ].cpu().numpy()
-        for p, tile in zip(idx, tiles):
+        idx_t = torch.as_tensor(idx, device=self.device)
+        tiles = self.factors.pool[idx_t].cpu().numpy()
+        pool_u = self.factors.pool_u
+        tiles_u = pool_u[idx_t].cpu().numpy() if pool_u is not None else tiles
+        for p, tile, tile_u in zip(idx, tiles, tiles_u):
             I, J = lay.blk_row[p] - sb, lay.blk_col[p] - sb
             S[I * T:(I + 1) * T, J * T:(J + 1) * T] = tile
             if I != J:
-                S[J * T:(J + 1) * T, I * T:(I + 1) * T] = tile.T
-            else:
+                S[J * T:(J + 1) * T, I * T:(I + 1) * T] = tile_u.T
+            elif pool_u is None:
                 blk = S[I * T:(I + 1) * T, J * T:(J + 1) * T]
                 S[I * T:(I + 1) * T, J * T:(J + 1) * T] = (
                     np.tril(blk) + np.tril(blk, -1).T

@@ -137,15 +137,27 @@ def test_native_library_builds_in_port_build_dir():
     assert native.status != "not tried"
     if native.status.startswith("unavailable"):
         pytest.skip(f"no native toolchain here: {native.status}")
-    assert os.path.isfile(os.path.join(ROOT, "pastix_tpu_torch", "_build",
-                                       "_pastix_native.so"))
-    assert not os.path.exists(os.path.join(ROOT, "pastix_tpu_torch",
-                                           "native", "_pastix_native.so"))
+    built = native.lib_path(native.host_key())
+    assert os.path.isfile(built)
+    assert os.path.dirname(built) == os.path.join(ROOT, "pastix_tpu_torch",
+                                                  "_build")
+    assert not any(f.endswith(".so") for f in os.listdir(
+        os.path.join(ROOT, "pastix_tpu_torch", "native")))
+
+
+def test_native_library_named_by_host_cpu():
+    """The -march=native library is cached under a key of the host CPU:
+    two hosts give two paths, one host always the same."""
+    key = native.host_key()
+    assert key == native.host_key() and len(key) == 12
+    assert native.lib_path(key) != native.lib_path("0" * 12)
+    assert os.path.basename(native.lib_path(key)) == f"_pastix_native_{key}.so"
 
 
 def test_port_runs_without_jax_or_pastix_tpu():
-    """A fresh interpreter imports the port, runs spsolve and a Schur
-    solve on the CPU, and never loads jax or a pastix_tpu module."""
+    """A fresh interpreter imports the port, runs spsolve, a Schur solve
+    and an LU solve on the CPU, and never loads jax or a pastix_tpu
+    module."""
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -159,6 +171,11 @@ def test_port_runs_without_jax_or_pastix_tpu():
         "s.set_schur_unknowns(np.arange(A.n - 25, A.n))\n"
         "x = s.solve_with_schur(b)\n"
         "assert s.get_schur().shape == (25, 25)\n"
+        "assert np.abs(x - 1).max() < 1e-9\n"
+        "from pastix_tpu_torch.generators import convection_diffusion_3d\n"
+        "C = convection_diffusion_3d(5)\n"
+        "x = P.spsolve(C, C.to_scipy() @ np.ones(C.n), device='cpu',\n"
+        "              tile_size=32, factorization=P.Factorization.LU)\n"
         "assert np.abs(x - 1).max() < 1e-9\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'pastix_tpu')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'pastix_tpu.')))\n"

@@ -26,6 +26,7 @@ SLICE_MODULES = [
     "pastix_tpu_torch.numeric.leftlook",
     "pastix_tpu_torch.numeric.pipelined",
     "pastix_tpu_torch.numeric.sweep_kernels",
+    "pastix_tpu_torch.numeric.tile_factor",
     "pastix_tpu_torch.order",
     "pastix_tpu_torch.pastix",
     "pastix_tpu_torch.refine",

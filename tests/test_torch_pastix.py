@@ -88,32 +88,41 @@ def test_spsolve_block_rhs():
     assert _rel(got, X) <= 1e-9
 
 
-@pytest.mark.parametrize("kind", [Factorization.LDLT, Factorization.LU])
+@pytest.mark.parametrize("kind", [
+    dict(factorization=Factorization.LDLH),
+    dict(factorization=Factorization.LU, compute_dtype="complex64"),
+])
 def test_unported_kinds_raise(kind):
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        Pastix(poisson_3d(4), PastixConfig(factorization=kind), device="cpu")
+    """Real LDLᵗ and LU are ported (slice 2); LDLᴴ and complex LU are
+    slice 3."""
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        Pastix(poisson_3d(4), PastixConfig(**kind), device="cpu")
 
 
 @pytest.mark.parametrize("cfg", [
     dict(compute_dtype="complex64"), dict(mesh_shape=(2,)), dict(ooc=True),
     dict(incomplete=True), dict(refinement=RefinementMethod.GMRES),
-    dict(schur=True, factorization=Factorization.LU),
+    dict(schur=True, factorization=Factorization.LDLH),
 ], ids=["complex", "mesh", "ooc", "ilu", "gmres", "schur"])
 def test_unported_options_raise(cfg):
-    """The schur case: Schur with LU is slice 2 (LLᵗ Schur is ported)."""
+    """The schur case: Schur under LDLᴴ is slice 3 (LLᵗ, LDLᵗ and LU
+    Schur are ported)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md slice"):
         Pastix(poisson_3d(4), PastixConfig(**cfg), device="cpu")
 
 
 def test_schur_unknowns_raise():
-    """Schur unknowns under LDLᵗ name slice 2; under LLᵗ they are taken."""
-    with pytest.raises(NotImplementedError, match="LDLT.*slice 2"):
-        Pastix(poisson_3d(4), PastixConfig(factorization=Factorization.LDLT,
+    """Schur unknowns under LDLᴴ name slice 3; under LLᵗ, LDLᵗ and LU
+    they are taken."""
+    with pytest.raises(NotImplementedError, match="LDLH.*slice 3"):
+        Pastix(poisson_3d(4), PastixConfig(factorization=Factorization.LDLH,
                                            schur=True),
                device="cpu").set_schur_unknowns([0, 1])
-    s = Pastix(poisson_3d(4), PastixConfig(), device="cpu")
-    assert s.set_schur_unknowns([1, 0, 1]) is s and s.config.schur
-    np.testing.assert_array_equal(s._schur_unknowns, [0, 1])
+    for kind in (Factorization.LLT, Factorization.LDLT, Factorization.LU):
+        s = Pastix(poisson_3d(4), PastixConfig(factorization=kind),
+                   device="cpu")
+        assert s.set_schur_unknowns([1, 0, 1]) is s and s.config.schur
+        np.testing.assert_array_equal(s._schur_unknowns, [0, 1])
 
 
 def test_foreign_config_raises():
@@ -144,3 +153,19 @@ def test_cuda_without_gpu_raises():
         Pastix(A, PastixConfig(), device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pastix_tpu_torch.spsolve(A, np.ones(A.n))  # the default is cuda
+    for kind in (Factorization.LDLT, Factorization.LU):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Pastix(A, PastixConfig(factorization=kind))
+
+
+def test_unsymmetric_matrix_refused_unless_lu():
+    """The symmetric kinds check the matrix (pastix_checkMatrix); LU
+    keeps full storage."""
+    from pastix_tpu_torch.generators import convection_diffusion_3d
+
+    M = convection_diffusion_3d(4).to_scipy()
+    for kind in (Factorization.LLT, Factorization.LDLT):
+        with pytest.raises(ValueError, match="not symmetric"):
+            Pastix(M, PastixConfig(factorization=kind), device="cpu")
+    s = Pastix(M, PastixConfig(factorization=Factorization.LU), device="cpu")
+    assert not s.A.symmetric_storage and s.A.nnz == M.nnz

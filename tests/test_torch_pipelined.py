@@ -7,7 +7,10 @@ against the reference's ``gemm_scatter_pipelined`` in interpret mode (as
 ``tests/test_pallas.py`` runs it) and against the reference's XLA
 ``gemm_scatter``: T=16, 33 random pairs (numpy seed 0), bf16 and None
 updates, rtol = atol = 1e-3 (the reference's fp32 products are three
-bf16 passes, the twin's fp32).
+bf16 passes, the twin's fp32).  The scaled (``d``, LDLᵗ) and cross-pool
+(``src_pool``, LU) variants the same way, against the interpret-mode
+kernel with the same variant and the XLA ``gemm_scatter(scale_cols=)`` /
+``gemm_scatter_ab``.
 """
 
 import jax.numpy as jnp
@@ -40,6 +43,68 @@ def data():
     gb = rng.integers(0, NSRC, NG).astype(np.int32)
     gd = rng.integers(NSRC, NPOOL, NG).astype(np.int32)
     return pool, ga, gb, gd
+
+
+@pytest.fixture(scope="module")
+def variant_data(data):
+    """The second pool of LU, the pivots d (nbc, T) and each pair's
+    source column gk."""
+    rng = np.random.default_rng(1)
+    pool_u = rng.standard_normal((NPOOL, T, T)).astype(np.float32)
+    d = (rng.uniform(0.5, 2.0, (8, T)) * rng.choice([-1, 1], (8, T))).astype(
+        np.float32)
+    gk = rng.integers(0, 8, NG).astype(np.int32)
+    return pool_u, d, gk
+
+
+def _variant_args(variant, pool_u, d, lib):
+    if variant == "d":
+        return {"d": lib(d)}
+    return {"src_pool": lib(pool_u)}
+
+
+# one interpret-mode call costs seconds: the scaled variant (its gk
+# tables are the part the XLA form lacks) once; the XLA comparison below
+# covers both variants at both update dtypes
+@pytest.mark.parametrize("variant,upd", [("d", "bf16")])
+def test_variant_twin_matches_pallas_interpret(data, variant_data, variant,
+                                               upd):
+    pool, ga, gb, gd = data
+    pool_u, d, gk = variant_data
+    j_upd, t_upd = UPD[upd]
+    gk_ = gk if variant == "d" else None
+    sched = JPK.build_pipeline_schedule(ga, gb, gd, gk=gk_, chunk=32, group=2)
+    want = np.asarray(JPK.gemm_scatter_pipelined(
+        jnp.asarray(pool), sched, update_dtype=j_upd,
+        **_variant_args(variant, pool_u, d, jnp.asarray)))
+    plan = PL.pipeline_plan(PL.build_pipeline_schedule(
+        ga, gb, gd, gk=gk_, chunk=32, group=2), "cpu")
+    got = PL.gemm_scatter_pipelined(
+        torch.from_numpy(pool.copy()), plan, t_upd,
+        **_variant_args(variant, pool_u, d, torch.from_numpy)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("upd", list(UPD))
+@pytest.mark.parametrize("variant", ["d", "src_pool"])
+def test_variant_twin_matches_xla(data, variant_data, variant, upd):
+    pool, ga, gb, gd = data
+    pool_u, d, gk = variant_data
+    j_upd, t_upd = UPD[upd]
+    if variant == "d":
+        want = JK.gemm_scatter(jnp.asarray(pool), ga, gb, gd,
+                               scale_cols=jnp.asarray(d)[gk],
+                               update_dtype=j_upd)
+    else:
+        want = JK.gemm_scatter_ab(jnp.asarray(pool), jnp.asarray(pool),
+                                  jnp.asarray(pool_u), ga, gb, gd,
+                                  update_dtype=j_upd)
+    plan = PL.pipeline_plan(PL.build_pipeline_schedule(
+        ga, gb, gd, gk=gk if variant == "d" else None, group=2), "cpu")
+    got = PL.gemm_scatter_pipelined(
+        torch.from_numpy(pool.copy()), plan, t_upd,
+        **_variant_args(variant, pool_u, d, torch.from_numpy)).numpy()
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-3, atol=1e-3)
 
 
 def _twin(pool, sched, upd):
@@ -131,6 +196,21 @@ def test_cpu_pool_runs_the_twin(data):
 @pytest.mark.parametrize("variant", ["d", "src_pool", "xab", "compact",
                                      "ab_pack"])
 def test_unported_variants_raise(data, variant):
-    pool = torch.from_numpy(data[0].copy())
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    """The TPU operand streams (xab, compact, ab_pack) raise naming the
+    ROADMAP; d and src_pool are ported and refuse a malformed operand
+    (and ``d`` a plan built without gk)."""
+    pool, ga, gb, gd = data
+    pool = torch.from_numpy(pool.copy())
+    if variant in ("d", "src_pool"):
+        bad = {"d": torch.ones(3, T + 1), "src_pool": torch.ones(2, T, T)}
+        with pytest.raises(ValueError, match=variant):
+            PL.gemm_scatter_pipelined(pool, [], None, **{variant: bad[variant]})
+        if variant == "d":
+            plan = PL.pipeline_plan(PL.build_pipeline_schedule(ga, gb, gd),
+                                    "cpu")
+            with pytest.raises(ValueError, match="gk"):
+                PL.gemm_scatter_pipelined(pool, plan, None,
+                                          d=torch.ones(8, T))
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP.md B3"):
         PL.gemm_scatter_pipelined(pool, [], None, **{variant: True})

@@ -4,7 +4,10 @@ pool, inverse diagonals and RHS (numpy, from a seed), R in {1, 3}.
 poisson_3d(8), T=32: interpret mode costs about 10 ms per op on a CPU.
 
 Tolerance: rtol=1e-5 against max|ref|; both run fp32 arithmetic and
-differ in summation order only.
+differ in summation order only.  The LU sweeps (forward on the L pool
+with the unit-lower inverses, backward on the Uᵗ pool with the upper
+inverses: updates transposed, the diagonal untransposed) the same way,
+on convection_diffusion_3d(5)'s LU factors at R = 2.
 """
 
 import numpy as np
@@ -14,8 +17,8 @@ import torch
 import jax.numpy as jnp
 
 import pastix_tpu.numeric.sweep_kernels as JSW
-from pastix_tpu_torch.config import PastixConfig
-from pastix_tpu_torch.generators import poisson_3d
+from pastix_tpu_torch.config import Factorization, PastixConfig
+from pastix_tpu_torch.generators import convection_diffusion_3d, poisson_3d
 
 import pastix_tpu_torch.numeric.sweep_kernels as SW
 from pastix_tpu_torch.pastix import Pastix
@@ -86,3 +89,36 @@ def test_update_phase_sub_segments(factored):
             assert torch.equal(torch.repeat_interleave(sub_dst, lens), d)
             assert ph.seg_dst.unique().numel() == ph.seg_dst.numel()
     assert n_upd > 0
+
+
+@pytest.fixture(scope="module")
+def factored_lu():
+    s = Pastix(convection_diffusion_3d(5),
+               PastixConfig(tile_size=32, factorization=Factorization.LU),
+               device="cpu")
+    s.factorize()
+    return s
+
+
+def test_lu_twin_matches_pallas_sweeps(factored_lu, nrhs=2):
+    lay, f = factored_lu.layout, factored_lu.factors
+    rng = np.random.default_rng(10 + nrhs)
+    y2 = rng.standard_normal((lay.nbc * nrhs, lay.T)).astype(np.float32)
+    nops = sum(len(lv.cols) + len(lv.trsm_panel) for lv in lay.levels)
+    sched = JSW.build_sweep_schedule(lay, chunk_max=-(-nops // 4) * 4)
+    j = lambda t: jnp.asarray(t.numpy())
+    ref = JSW.sweep_fwd(j(f.pool), j(f.dinv), jnp.asarray(y2), sched,
+                        interpret=True)
+    ref = np.asarray(JSW.sweep_bwd(j(f.pool_u), j(f.dinv_u), ref, sched,
+                                   lu=True, interpret=True))
+    plan = SW.sweep_plan(lay, "cpu")
+    got = torch.from_numpy(y2.copy())
+    SW.sweep_fwd(f.pool, f.dinv, got, plan)
+    SW.sweep_bwd(f.pool_u, f.dinv_u, got, plan, lu=True)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    # the LU backward sweep is not the symmetric one
+    sym = torch.from_numpy(y2.copy())
+    SW.sweep_fwd(f.pool, f.dinv, sym, plan)
+    SW.sweep_bwd(f.pool_u, f.dinv_u, sym, plan)
+    assert np.abs(sym.numpy() - ref).max() > 1e-3 * np.abs(ref).max()
