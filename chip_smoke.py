@@ -8,7 +8,7 @@ prints the final ``ok`` line:
 
 1. device: a CUDA device is required; prints the card's name and power
    limit (nvidia-smi);
-2. build: compiles the hand-written CUDA kernels K1-K4 from ``csrc/``
+2. build: compiles the hand-written CUDA kernels K1-K6 from ``csrc/``
    (one nvcc per source, in parallel) and the port's native host library
    (g++; prints whether it was built or the Python ordering runs);
 3. kernels: each kernel against its plain PyTorch twin on the same inputs,
@@ -29,6 +29,12 @@ prints the final ``ok`` line:
    LU backward at R = 1 and R = 3; K4 (static-pivot tile factorization)
    LU and LDLᵗ on the busiest level's diagonal tiles and on a batch with
    planted zero pivots; ``get_schur`` under LU against the sparse-LU S;
+   then slice 3 on the busiest level's pairs of the poisson_3d(24) (LLᵗ,
+   LDLᵗ) and convection_diffusion_3d(24) (LU) T=128 layouts, bf16 and
+   fp32, 1e-4 max|ref|: K3 reading operand arrays (the panel stream
+   ``xab`` plain, ``d`` and LU's (L, Uᵗ) with its mirror; ``compact``
+   plain, ``d`` and ``src_pool``; ``ab_pack``), K5 (dst-block E2, every
+   entry kept) and K6 (panel-slab E2, cost gate off) plain and ``d``;
 4. main path: ``Pastix(poisson_3d(--nx), T=128, bf16 updates)`` through
    order, symbfact, analyze, factorize (twice, the second timed) and a
    refined solve of b = A.1 to a fp64 residual <= 1e-10; the launch counts
@@ -63,6 +69,19 @@ prints the final ``ok`` line:
 10. LDLᵗ Schur path: the shift-invert poisson_3d(--schur-nx) with its
    plane z = nx-1, fp32 updates: as 9 (S symmetric), K3 launched in its
    scaled variant; K3 ``d`` against its twin and timed in fp32;
+11. right-looking paths (the reference's ``PASTIX_E2_LL=0`` schedules,
+   bf16 updates): LLᵗ on ``poisson_3d(--nx)`` (dense tail on) in stream,
+   block, slab, pair and pair+compact; LDLᵗ on the same (unshifted)
+   Laplacian in stream, block and slab; LU on
+   ``convection_diffusion_3d(--lu-nx)`` in stream.  Per matrix the host
+   analysis once and the left-looking ``fact_ms`` for reference (no
+   claim); per schedule its own factorize program
+   (``build_factorize_fn(e2=...)``): factorize twice (the second timed)
+   and a refined solve to <= 1e-10, the schedule's kernel (K3, K5 or K6)
+   launched, K1 not, no twin; where the reference's cost gate keeps no
+   block or slab pair of the matrix the gate is opened, and the log says
+   so; then that kernel against its twin at the path's busiest level,
+   timed and bound;
 
 then the card's nvidia-smi line, one JSON line of the kernels (each
 variant on its own line of the list, ``launches`` from the path that runs
@@ -74,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -150,15 +170,24 @@ def e2_bound_lists(lists, T, pair_flops, upd):
     return bound(flops, peak, nbytes)
 
 
+def plan_dsts(c):
+    """The dst tiles of one E2 chunk: K1, K3 and K6 chunks list theirs
+    per segment, K5 chunks per block row (-1: no tile)."""
+    if hasattr(c, "row_dst"):
+        return c.row_dst[c.row_dst >= 0]
+    return c.seg_dst
+
+
 def check_e2(name, run, run_ref, pool, chunks, update_dtype, label, **kw):
-    """An E2 kernel (K1 or K3) against its twin on copies of ``pool``
-    (``kw``: the ``d`` or ``src_pool`` variant); returns max|d|."""
+    """An E2 kernel (K1, K3, K5 or K6) against its twin on copies of
+    ``pool`` (``kw``: the ``d`` or ``src_pool`` variant, K3's operand
+    arrays); returns max|d|."""
     import torch
 
     got = run(pool.clone(), chunks, update_dtype, **kw)
     ref = run_ref(pool.clone(), chunks, update_dtype, **kw)
     torch.cuda.synchronize()
-    touched = torch.cat([c.seg_dst for c in chunks]).unique()
+    touched = torch.cat([plan_dsts(c) for c in chunks]).unique()
     scale = float(ref[touched].abs().max())
     err = float((got - ref).abs().max())
     ok = err <= TOL_E2 * scale
@@ -342,13 +371,16 @@ def schur_reference(A, schur):
 
 
 def counters():
+    from pastix_tpu_torch.numeric import block as BK
     from pastix_tpu_torch.numeric import leftlook as LL
     from pastix_tpu_torch.numeric import pipelined as PL
+    from pastix_tpu_torch.numeric import slab as SB
     from pastix_tpu_torch.numeric import sweep_kernels as SW
     from pastix_tpu_torch.numeric import tile_factor as TF
 
     return {"K1": LL.gemm_scatter_ll, "K2": SW.run_sweep,
-            "K3": PL.gemm_scatter_pipelined, "K4": TF.tile_factor}
+            "K3": PL.gemm_scatter_pipelined, "K4": TF.tile_factor,
+            "K5": BK.gemm_scatter_block, "K6": SB.gemm_scatter_slab}
 
 
 def reset_counts():
@@ -356,13 +388,17 @@ def reset_counts():
         fn.launches = fn.twin_launches = 0
 
 
-def read_counts(path, need):
+def read_counts(path, need, forbid=()):
+    """The launch counts since :func:`reset_counts`; fails unless every
+    kernel of ``need`` launched, none of ``forbid`` did and no twin ran."""
     launches = {k: fn.launches for k, fn in counters().items()}
     twins = {k: fn.twin_launches for k, fn in counters().items()}
     log(f"  {path}: launches {launches}, twin calls {twins}")
-    if min(launches[k] for k in need) == 0 or max(twins.values()) != 0:
+    if (min(launches[k] for k in need) == 0 or max(twins.values()) != 0
+            or any(launches[k] for k in forbid)):
         raise AssertionError(
-            f"the {path} did not run through all of {need}, or ran a twin")
+            f"the {path} did not run through all of {need}, ran one of "
+            f"{forbid}, or ran a twin")
     return launches
 
 
@@ -770,6 +806,339 @@ def check_variants(dev, errs, sch24):
         del ss
 
 
+def pair_arrays(c, T):
+    """(a, b, dst, k, lo, hi) of every pair of one K3, K5 or K6 chunk as
+    numpy arrays: a's tile (K3: its position in the chunk's operand form,
+    see :func:`e2_work`), b's, the dst tile, the source column (or None)
+    and the rows [lo, hi) of a the pair reads."""
+    if hasattr(c, "row_dst"):  # K5
+        a, b, dst, k = (x.cpu().numpy() for x in c.pairs())
+        lo, hi = np.zeros(a.size, np.int64), np.full(a.size, T)
+    elif hasattr(c, "pair_r0"):  # K6
+        a, b, dst, k, r0, ha = (x.cpu().numpy().astype(np.int64)
+                                for x in c.pairs())
+        lo, hi = r0, r0 + ha
+    else:  # K3
+        import torch
+
+        a, b = c.pair_a.cpu().numpy(), c.pair_b.cpu().numpy()
+        dst = torch.repeat_interleave(c.seg_dst, c.seg_ptr.diff()).cpu(
+        ).numpy()
+        k = None if c.pair_k is None else c.pair_k.cpu().numpy()
+        lo, hi = np.zeros(a.size, np.int64), np.full(a.size, T)
+    return a, b, dst, k, lo, hi
+
+
+def e2_work(steps, T):
+    """(flops, bytes) of right-looking E2 steps ``(dst, a_src, b_src,
+    chunks, scaled)``, run as one: 2 (hi - lo) T^2 flops a pair; each
+    distinct tile of each source read once over the rows its pairs read
+    (``a_src``/``b_src`` name a pool, fp32, or ``("stream", side)``, the
+    level's bf16 panel stream, where a K3 chunk's ``ext_a``/``ext_b``
+    positions index it), each dst tile read and written once over the
+    rows its pairs change, and the pivot rows of d once."""
+    flops, rows, krows = 0.0, {}, set()
+
+    def add(key, idx, lo, hi):
+        rows.setdefault(key, []).append((idx, lo, hi))
+
+    for dst, a_src, b_src, chunks, scaled in steps:
+        for c in chunks:
+            a, b, d, k, lo, hi = pair_arrays(c, T)
+            if isinstance(a_src, tuple):
+                a, b = c.ext_a.cpu().numpy(), c.ext_b.cpu().numpy()
+            flops += float((2.0 * (hi - lo) * T ** 2).sum())
+            add(a_src, a, lo, hi)
+            add(b_src, b, np.zeros_like(lo), np.full_like(hi, T))
+            add(("dst", dst), d, lo, hi)
+            if scaled and k is not None:
+                krows.update(k.tolist())
+    nbytes = 0.0
+    for key, parts in rows.items():
+        idx = np.concatenate([p[0] for p in parts]).astype(np.int64)
+        lo = np.concatenate([p[1] for p in parts])
+        hi = np.concatenate([p[2] for p in parts])
+        u, inv = np.unique(idx, return_inverse=True)
+        tlo = np.full(u.size, T)
+        thi = np.zeros(u.size, np.int64)
+        np.minimum.at(tlo, inv, lo)
+        np.maximum.at(thi, inv, hi)
+        per_row = T * (2 if isinstance(key, tuple) and key[0] == "stream"
+                       else 4)
+        nbytes += (2 if key[0] == "dst" else 1) * float(
+            ((thi - tlo) * per_row).sum())
+    return flops, nbytes + len(krows) * T * 4
+
+
+def rl_checked(name, run, run_ref, steps, pools, upd, T, errs, key):
+    """Right-looking E2 steps ``(dst, a_src, b_src, chunks, kw)`` with
+    ``pools`` naming their tensors: each step against its twin on copies
+    of its pool (max|d| to ``errs[key]``), then all steps as one, kernel
+    and twin timed, and bound by :func:`e2_work` at the bf16 peak
+    (``upd`` bf16) or the fp32 one."""
+    import torch
+
+    for dst, _, _, chunks, kw in steps:
+        errs[key] = max(errs[key], check_e2(
+            name, run, run_ref, pools[dst], chunks, upd,
+            f"{key} {dst} {str(upd)[6:]}", **kw))
+    work = {k: pools[k].clone() for k in {st[0] for st in steps}}
+
+    def step(fn):
+        for dst, _, _, chunks, kw in steps:
+            fn(work[dst], chunks, upd, **kw)
+
+    ms = cuda_ms(lambda: step(run))
+    plain = cuda_ms(lambda: step(run_ref))
+    flops, nbytes = e2_work(
+        [(d, a, b, c, "d" in kw) for d, a, b, c, kw in steps], T)
+    bd = bound(flops, PEAK_BF16 if upd == torch.bfloat16 else PEAK_FP32,
+               nbytes)
+    pairs = sum(c.n_pairs for st in steps for c in st[3])
+    log(f"timing {name} {key} ({sum(len(st[3]) for st in steps)} chunks, "
+        f"{pairs} pairs, {str(upd)[6:]}): kernel {ms:.3f} ms, twin "
+        f"{plain:.3f} ms, bound {bd[0]:.4f} ms ({bd[1]})")
+    del work
+    return ms, plain, bd
+
+
+def rl_steps(f, lv, mode, form=None):
+    """The E2 steps of one right-looking level as :func:`rl_checked` takes
+    them, with the pools and streams they read: ``mode`` stream, block,
+    slab or pair (``form``: K3's ``compact`` or ``ab_pack``).  Returns
+    (steps, pools, run, run_ref)."""
+    import torch
+    from pastix_tpu_torch.numeric import block as BK
+    from pastix_tpu_torch.numeric import pipelined as PL
+    from pastix_tpu_torch.numeric import slab as SB
+
+    lu = f.pool_u is not None
+    pools = {"pool": f.pool}
+    kw = {} if f.d is None else {"d": f.d}
+    if mode == "block":
+        return ([("pool", "pool", "pool", lv.blk, kw)], pools,
+                BK.gemm_scatter_block, BK.gemm_scatter_block_ref)
+    if mode == "slab":
+        return ([("pool", "pool", "pool", lv.slab, kw)], pools,
+                SB.gemm_scatter_slab, SB.gemm_scatter_slab_ref)
+    run = (PL.gemm_scatter_pipelined, PL.gemm_scatter_pipelined_ref)
+    if lu:
+        pools["pool_u"] = f.pool_u
+    if mode == "stream":
+        xl = f.pool[lv.tp].to(torch.bfloat16)
+        if not lu:
+            return ([("pool", ("stream", "l"), ("stream", "l"), lv.full,
+                      dict(kw, xab=xl))], pools) + run
+        xu = f.pool_u[lv.tp].to(torch.bfloat16)
+        steps = [("pool", ("stream", "l"), ("stream", "u"), lv.full,
+                  {"xab": (xl, xu)})]
+        if lv.nd:
+            steps.append(("pool_u", ("stream", "u"), ("stream", "l"),
+                          lv.nd, {"xab": (xu, xl)}))
+        return (steps, pools) + run
+    if form is not None:
+        kw = dict(kw, **{form: True})
+    if not lu:
+        return ([("pool", "pool", "pool", lv.full, kw)], pools) + run
+    steps = [("pool", "pool", "pool_u", lv.full, dict(kw, src_pool=f.pool_u))]
+    if lv.nd:
+        steps.append(("pool_u", "pool_u", "pool", lv.nd,
+                      dict(kw, src_pool=f.pool)))
+    return (steps, pools) + run
+
+
+# the cost gate settings that keep every pair of a block or slab plan,
+# for a matrix whose levels the reference's defaults (1.8 tiles a pair;
+# the slab cost model) leave wholly to the pair kernel
+RL_GATE_OPEN = {"block": ("PASTIX_BLOCK_GATE", "100"),
+                "slab": ("PASTIX_SLAB_GATE", "0")}
+# the kernel each right-looking schedule must launch
+RL_KERNEL = {"stream": "K3", "pair": "K3", "pair+compact": "K3",
+             "block": "K5", "slab": "K6"}
+
+
+def rl_busiest(fact_fn, mode):
+    """The level with the most pairs of ``mode``'s kernel."""
+    attr = {"block": ("blk",), "slab": ("slab",)}.get(mode, ("full", "nd"))
+    return max(fact_fn.levels, key=lambda lv: sum(
+        c.n_pairs for a in attr for c in getattr(lv, a)))
+
+
+def check_rightlook_kernels(dev, errs):
+    """Phase 3 for slice 3: K3's operand arrays (the panel stream ``xab``
+    plain, ``d`` and LU's (L, Uᵗ) with its mirror; ``compact`` plain,
+    ``d`` and ``src_pool``; ``ab_pack``), K5 and K6 plain and ``d``,
+    each against its twin in bf16 and fp32, on the busiest level's pairs
+    of the poisson_3d(24) (LLᵗ and LDLᵗ) and convection_diffusion_3d(24)
+    (LU) T=128 layouts.  K5 keeps every entry of the level (gate 100);
+    K6 runs the default slab sizes, its cost gate off."""
+    import torch
+    from pastix_tpu_torch.config import Factorization
+    from pastix_tpu_torch.generators import convection_diffusion_3d, poisson_3d
+    from pastix_tpu_torch.numeric import block as BK
+    from pastix_tpu_torch.numeric import slab as SB
+    from pastix_tpu_torch.numeric.factorize import _Level
+    from pastix_tpu_torch.numeric.pipelined import (
+        build_pipeline_schedule, pipeline_plan,
+    )
+
+    LLT, LDLT, LU = Factorization.LLT, Factorization.LDLT, Factorization.LU
+    for kind, A in ((LLT, poisson_3d(24)), (LDLT, poisson_3d(24)),
+                    (LU, convection_diffusion_3d(24))):
+        s, _ = analyzed(A, kind_cfg(kind), dev)
+        s.factorize()
+        f, lay, T = s.factors, s.layout, s.layout.T
+        src = max(lay.levels, key=lambda lv: lv.gemm_a.size)
+        ga, gb, gd, gk = src.gemm_a, src.gemm_b, src.gemm_d, src.gemm_k
+        nd = np.asarray(src.gemm_nondiag, bool)
+        tens = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)
+        pipe = lambda a, b, d, k=None, ext=None: pipeline_plan(
+            build_pipeline_schedule(a, b, d, gk=k, group=2, ext_tiles=ext),
+            dev)
+        lv = _Level(cols=None, diag=None, tp=tens(src.trsm_panel), tc=None,
+                    tcpos=None)
+        for upd in (torch.bfloat16, torch.float32):
+            lv.full = pipe(ga, gb, gd, gk, ext=src.trsm_panel)
+            lv.nd = pipe(ga[nd], gb[nd], gd[nd], ext=src.trsm_panel) if (
+                kind == LU and nd.any()) else []
+            steps, pools, run, ref = rl_steps(f, lv, "stream")
+            for dst, _, _, chunks, kw in steps:
+                errs["K3xab"] = max(errs["K3xab"], check_e2(
+                    "K3", run, ref, pools[dst], chunks, upd,
+                    f"xab {kind.name} {dst} {str(upd)[6:]}", **kw))
+            for form in ("compact", "ab_pack"):
+                if form == "ab_pack" and kind != LLT:
+                    continue
+                steps, pools, run, ref = rl_steps(f, lv, "pair", form)
+                for dst, _, _, chunks, kw in steps:
+                    key = "K3compact" if form == "compact" else "K3pack"
+                    errs[key] = max(errs[key], check_e2(
+                        "K3", run, ref, pools[dst], chunks, upd,
+                        f"{form} {kind.name} {dst} {str(upd)[6:]}", **kw))
+            if kind == LU:
+                continue
+            bp = BK.build_block_plan(ga, gb, gd, gk, lay.blk_row,
+                                     lay.blk_col, lay.keys, lay.nbc,
+                                     lay.npool, gate=100.0)
+            lv.blk = BK.block_plan(bp, lay.blk_row, dev)
+            old = os.environ.get("PASTIX_SLAB_GATE")
+            os.environ["PASTIX_SLAB_GATE"] = "0"
+            try:
+                doc = lay.lookup(np.arange(lay.nbc), np.arange(lay.nbc))
+                sp_ = SB.build_slab_plan(
+                    ga, gb, gd, gk, doc, lay.npool, C=0, H=0,
+                    rbounds=(lay.row_lo, lay.row_hi), T=T)
+            finally:
+                if old is None:
+                    del os.environ["PASTIX_SLAB_GATE"]
+                else:
+                    os.environ["PASTIX_SLAB_GATE"] = old
+            lv.slab = SB.slab_plan(sp_, T, dev)
+            for mode, key in (("block", "K5"), ("slab", "K6")):
+                if not getattr(lv, "blk" if mode == "block" else "slab"):
+                    raise AssertionError(f"{key}: no {mode} pairs at nx=24")
+                steps, pools, run, ref = rl_steps(f, lv, mode)
+                for dst, _, _, chunks, kw in steps:
+                    errs[key] = max(errs[key], check_e2(
+                        key, run, ref, pools[dst], chunks, upd,
+                        f"{kind.name} {str(upd)[6:]}", **kw))
+        del s, f, lv
+
+
+def rightlook_path(label, A, kind, modes, dev, errs):
+    """Phase 11, one matrix and kind: the host analysis once, the
+    left-looking ``fact_ms`` (second call) for reference, then per
+    right-looking schedule of ``modes`` its own factorize program
+    (``build_factorize_fn(e2=mode)``) in the solver, the counts set to 0
+    just before and read just after: factorize twice (the second timed)
+    and a refined solve of b = A.1 to a fp64 residual <= 1e-10 (with the
+    peak device memory of both, the panel stream included); the
+    schedule's kernel (K3, K5 or K6) must launch, K1 not, and no twin
+    may run.  Then the schedule's kernel against its twin at the path's
+    busiest level, timed and bound.  Returns {mode: (launches, numbers,
+    timed)}."""
+    import torch
+    from pastix_tpu_torch.numeric.factorize import build_factorize_fn
+
+    s, t = analyzed(A, kind_cfg(kind), dev)
+    lay = s.layout
+    log(f"{label}: n={A.n} T={lay.T} npool={lay.npool} levels="
+        f"{len(lay.levels)} dense_tail_m={s.report.dense_tail_m}; order "
+        f"{t['order']:.3f} s symbfact {t['symbfact']:.3f} s analyze "
+        f"{t['analyze']:.3f} s")
+    for _ in range(2):
+        s.factorize()
+    left_ms = s.report.fact_time * 1e3
+    log(f"  left-looking factorize {left_ms:.1f} ms (second call)")
+    M = A.to_scipy()
+    b = M @ np.ones(A.n)
+    need = ("K2",) + (() if kind.name == "LLT" else ("K4",))
+    out = {}
+    for mode in modes:
+        s._fact_fn = s.factors = None
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        fn = build_factorize_fn(lay, s.device, kind,
+                                update_dtype=torch.bfloat16,
+                                dense_tail=s._dense_tail, e2=mode)
+        plan_s = time.perf_counter() - t0
+        kept = {"block": "n_block_pairs", "slab": "n_slab_pairs"}.get(mode)
+        if kept and not getattr(fn, kept):
+            # the reference's cost gate keeps no pair of this matrix: the
+            # schedule runs with the gate opened, and says so
+            var, val = RL_GATE_OPEN[mode]
+            log(f"  {mode}: the default {var} keeps no pair; {var}={val}")
+            os.environ[var] = val
+            try:
+                fn = build_factorize_fn(lay, s.device, kind,
+                                        update_dtype=torch.bfloat16,
+                                        dense_tail=s._dense_tail, e2=mode)
+            finally:
+                del os.environ[var]
+            plan_s = time.perf_counter() - t0
+        s._fact_fn = fn
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats(s.device)
+        fact = []
+        for _ in range(2):
+            s.factorize()
+            fact.append(s.report.fact_time * 1e3)
+        x = s.solve(b)
+        peak = torch.cuda.max_memory_allocated(s.device) / 2 ** 30
+        res = float(np.linalg.norm(b - M @ x) / np.linalg.norm(b))
+        log(f"  {mode}: plans {plan_s:.2f} s (block pairs "
+            f"{getattr(fn, 'n_block_pairs', 0)}, slab pairs "
+            f"{getattr(fn, 'n_slab_pairs', 0)}); factorize {fact[0]:.1f} "
+            f"ms (first), {fact[1]:.1f} ms (second; left-looking "
+            f"{left_ms:.1f}); solve {s.report.solve_time * 1e3:.1f} ms, "
+            f"refine_iters {s.report.refine_iters}, residual "
+            f"{s.report.residual:.3e} (original order {res:.3e}); peak "
+            f"device memory {peak:.3f} GiB")
+        if not np.isfinite(x).all() or not max(res, s.report.residual) <= (
+                TOL_RES):
+            raise AssertionError(f"{label} {mode}: residual {res:.3e}")
+        launches = read_counts(f"{label} {mode}", need + (RL_KERNEL[mode],),
+                               forbid=("K1",))
+        lv = rl_busiest(fn, mode)
+        kern = RL_KERNEL[mode]
+        steps, pools, run, ref = rl_steps(
+            s.factors, lv, "pair" if mode == "pair+compact" else mode,
+            "compact" if mode == "pair+compact" else None)
+        key = f"{kind.name} {mode}"
+        errs.setdefault(key, 0.0)
+        timed = rl_checked(kern, run, ref, steps, pools, torch.bfloat16,
+                           lay.T, errs, key)
+        out[mode] = (launches, {
+            "fact_ms": fact[1], "left_fact_ms": left_ms,
+            "solve_ms": s.report.solve_time * 1e3,
+            "iters": s.report.refine_iters, "residual": s.report.residual,
+            "plan_s": plan_s, "tiles": lay.npool, "peak_gib": peak,
+        }, timed)
+        del steps, pools
+    del s
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--nx", type=int, default=64,
@@ -830,7 +1199,8 @@ def main() -> int:
     ks.factorize()
     lv = busiest_level(ks._fact_fn)
     errs = {k: 0.0 for k in ("K1", "K1d", "K1x", "K2", "K2lu", "K3", "K3d",
-                             "K3x", "K4lu", "K4ldlt")}
+                             "K3x", "K4lu", "K4ldlt", "K3xab", "K3compact",
+                             "K3pack", "K5", "K6")}
     for chunks, where in ((lv.ll, "busiest level"), (ks._fact_fn.tail, "tail")):
         if not chunks:
             raise AssertionError(f"K1: no {where} chunks at this size")
@@ -878,6 +1248,8 @@ def main() -> int:
 
     # 3, slice 2: the LDLᵗ and LU variants on T=128 layouts of size 24
     check_variants(dev, errs, sch24)
+    # 3, slice 3: K3's operand arrays, K5 and K6 on the same layouts
+    check_rightlook_kernels(dev, errs)
 
     # 4.-5. the main path, and its kernels at its shapes
     launches, main_num, k1, k2 = main_path(args.nx, dev, errs)
@@ -894,6 +1266,22 @@ def main() -> int:
                                    "bfloat16", "K3x", dev, errs)
     schur_runs["K3d"] = schur_path(LDLT, shift_invert(nxs)[0], nxs, None,
                                    "K3d", dev, errs)
+
+    # 11. the right-looking E2 schedules (PASTIX_E2_LL=0), bf16 updates:
+    # LDLᵗ on the unshifted Laplacian (bf16 diverges on the shifted one)
+    rl = {
+        "LLT": rightlook_path(
+            f"LLT right-looking poisson_3d({args.nx})", poisson_3d(args.nx),
+            LLT, ("stream", "block", "slab", "pair", "pair+compact"), dev,
+            errs),
+        "LDLT": rightlook_path(
+            f"LDLT right-looking poisson_3d({args.nx})",
+            poisson_3d(args.nx), LDLT, ("stream", "block", "slab"), dev,
+            errs),
+        "LU": rightlook_path(
+            f"LU right-looking convection_diffusion_3d({args.lu_nx})",
+            convection_diffusion_3d(args.lu_nx), LU, ("stream",), dev, errs),
+    }
 
     # no single PyTorch call computes a gather-GEMM-scatter over a pair
     # list or a block-sparse triangular sweep: library_ms is null but for
@@ -933,11 +1321,38 @@ def main() -> int:
               "pastix_tpu/numeric/kernels.py:186", ldlt_launches["K4"],
               errs["K4ldlt"], k4ldlt),
     ]
+    # the right-looking rows: launches from the schedule's run, max|d|
+    # the larger of phase 3's and the path level's
+    k5_at = "pastix_tpu/numeric/block_kernels.py:689"
+    k6_at = "pastix_tpu/numeric/slab_kernels.py:588"
+    for name, src, at, kind, mode, k3key in (
+        (f"{k3}[xab]", k3, k3_at, "LLT", "stream", "K3xab"),
+        (f"{k3}[xab,d]", k3, k3_at, "LDLT", "stream", "K3xab"),
+        (f"{k3}[xab,src_pool]", k3, k3_at, "LU", "stream", "K3xab"),
+        (f"{k3}[compact]", k3, k3_at, "LLT", "pair+compact", "K3compact"),
+        ("block_gemm_scatter", "block_gemm_scatter", k5_at, "LLT", "block",
+         "K5"),
+        ("block_gemm_scatter[d]", "block_gemm_scatter", k5_at, "LDLT",
+         "block", "K5"),
+        ("slab_gemm_scatter", "slab_gemm_scatter", k6_at, "LLT", "slab",
+         "K6"),
+        ("slab_gemm_scatter[d]", "slab_gemm_scatter", k6_at, "LDLT", "slab",
+         "K6"),
+    ):
+        launches_m, _, timed = rl[kind][mode]
+        kernels.append(entry(name, f"{src}.cu", at,
+                             launches_m[RL_KERNEL[mode]],
+                             max(errs[k3key], errs[f"{kind} {mode}"]), timed))
+    log(f"K3 ab_pack (phase 3 only, no path builds it): max|d| "
+        f"{errs['K3pack']:.3e}")
     for name, num in (("LLT", main_num), ("LLT Schur", schur_runs["K3"][1]),
                       ("LU", lu_num), ("LDLT", ldlt_num),
                       ("LU Schur", schur_runs["K3x"][1]),
                       ("LDLT Schur", schur_runs["K3d"][1])):
         log(f"path {name}: " + json.dumps(num))
+    for kind, runs in rl.items():
+        for mode, (_, num, _) in runs.items():
+            log(f"path {kind} right-looking {mode}: " + json.dumps(num))
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _OUT = os.path.join(_HERE, "_build")
 _SOURCES = ("ll_gemm_scatter.cu", "sweep.cu", "pipelined_gemm_scatter.cu",
-            "tile_factor.cu")
+            "tile_factor.cu", "block_gemm_scatter.cu", "slab_gemm_scatter.cu")
 _HEADERS = ("common.cuh",)
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -113,8 +113,12 @@ def get_lib() -> ctypes.CDLL:
     lib.pastix_sweep_diag.restype = I
     lib.pastix_sweep_update.argtypes = [P] * 8 + [L, L, I, I, I, P]
     lib.pastix_sweep_update.restype = I
-    lib.pastix_pipelined_gemm_scatter.argtypes = [P] * 8 + [L, I, I, P]
+    lib.pastix_pipelined_gemm_scatter.argtypes = [P] * 9 + [L, I, I, I, P]
     lib.pastix_pipelined_gemm_scatter.restype = I
+    lib.pastix_block_gemm_scatter.argtypes = [P] * 7 + [L, I, I, P]
+    lib.pastix_block_gemm_scatter.restype = I
+    lib.pastix_slab_gemm_scatter.argtypes = [P] * 9 + [L, I, I, P]
+    lib.pastix_slab_gemm_scatter.restype = I
     lib.pastix_tile_factor.argtypes = [P] * 4 + [L, I, I, ctypes.c_float, P]
     lib.pastix_tile_factor.restype = I
     lib.pastix_cuda_error.argtypes = [I]

@@ -35,3 +35,17 @@ __device__ __forceinline__ float load_scaled(const float* p, float s) {
   if (ROUND) x = round_bf16(x);
   return x;
 }
+
+// The same for an a operand stored in bf16 (an operand array rounded
+// when it was produced): the pivot scaling, then a second rounding when
+// ROUND, as the reference computes round(round(L) d).
+template <bool ROUND, bool SCALED>
+__device__ __forceinline__ float load_scaled(const __nv_bfloat16* p,
+                                             float s) {
+  float x = __bfloat162float(*p);
+  if (SCALED) {
+    x *= s;
+    if (ROUND) x = round_bf16(x);
+  }
+  return x;
+}

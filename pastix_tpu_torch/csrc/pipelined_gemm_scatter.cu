@@ -2,17 +2,24 @@
 //
 // Replaces the Pallas kernel pastix_tpu/numeric/pallas_kernels.py
 // gemm_scatter_pipelined (_mk_pipelined_kernel): the plain, the scaled
-// (d: LDL^T) and the cross-pool (src_pool: LU) variants.
+// (d: LDL^T) and the cross-pool (src_pool: LU) variants, and the operand
+// arrays of its compact forms (xab: the panel TRSM's bf16 stream;
+// compact: per-chunk gathers of the distinct operand tiles; ab_pack:
+// stacked (a, b) pairs).
 // Semantics: for every dst segment of a chunk (pairs sorted by dst on the
 // host), subtract the sum of its pairs' op(a) . op(b)^T over the full
 // T x T dst tile, where op rounds an fp32 tile to bf16 when the update
 // dtype is bf16 and leaves it fp32 otherwise; products accumulate in
-// fp32.  a is read from the destination pool, b from b_src (the same
-// pool, or the other pool of LU); the scaled variant multiplies a's column
-// k by d[gk * T + k] (the pivot of the pair's source column) before the
-// rounding, as the reference does.  The reference forms fp32 products from three bf16 passes;
-// here they are fp32 FMAs.  Schur diagonal tiles are full, not lower, so
-// no triangle is masked.
+// fp32.  a is tile pair_a[p] of a_src, b tile pair_b[p] of b_src: the
+// pools themselves (a_src the destination pool, b_src the same pool or
+// the other pool of LU), or operand arrays of fp32 or bf16 tiles built
+// on the host side, which the kernel reads directly (a bf16 operand is
+// already rounded).  The scaled variant multiplies a's column k by
+// d[gk * T + k] (the pivot of the pair's source column) before the
+// rounding, as the reference does: round(a d) from the pool,
+// round(round(a) d) from a bf16 array.  The reference forms fp32 products
+// from three bf16 passes; here they are fp32 FMAs.  Schur diagonal tiles
+// are full, not lower, so no triangle is masked.
 //
 // What bounds it on an H100 at T = 128: a pair is 2 T^3 = 4.2 MFLOP
 // against two 64 KB fp32 operand tiles, about 32 FLOP per byte; operands
@@ -37,10 +44,11 @@ namespace {
 
 constexpr int BK = 32;
 
-template <int T, int BM, bool ROUND, bool SCALED>
+template <int T, int BM, typename OP, bool ROUND, bool SCALED>
 __global__ void __launch_bounds__((BM / 4) * (BM / 4))
 pipelined_gemm_scatter_kernel(float* __restrict__ pool,
-                              const float* __restrict__ b_src,
+                              const OP* __restrict__ a_src,
+                              const OP* __restrict__ b_src,
                               const int64_t* __restrict__ seg_ptr,
                               const int64_t* __restrict__ seg_dst,
                               const int64_t* __restrict__ pair_a,
@@ -70,8 +78,8 @@ pipelined_gemm_scatter_kernel(float* __restrict__ pool,
 
   const int64_t p_end = seg_ptr[seg + 1];
   for (int64_t p = seg_ptr[seg]; p < p_end; ++p) {
-    const float* a = pool + pair_a[p] * TT;
-    const float* b = b_src + pair_b[p] * TT;
+    const OP* a = a_src + pair_a[p] * TT;
+    const OP* b = b_src + pair_b[p] * TT;
     const float* dk = SCALED ? d + pair_k[p] * T : nullptr;
     for (int k0 = 0; k0 < T; k0 += BK) {
       // LD loads of a and of b per thread, all issued before the first
@@ -116,55 +124,83 @@ pipelined_gemm_scatter_kernel(float* __restrict__ pool,
       dst[(int64_t)(r0 + ty * 4 + u) * T + c0 + tx * 4 + v] -= acc[u][v];
 }
 
-template <int T, bool ROUND, bool SCALED>
-cudaError_t launch(float* pool, const float* b_src, const int64_t* seg_ptr,
-                   const int64_t* seg_dst, const int64_t* pair_a,
-                   const int64_t* pair_b, const float* d,
-                   const int64_t* pair_k, int64_t nseg, cudaStream_t stream) {
+template <int T, typename OP, bool ROUND, bool SCALED>
+cudaError_t launch(float* pool, const void* a_src, const void* b_src,
+                   const int64_t* seg_ptr, const int64_t* seg_dst,
+                   const int64_t* pair_a, const int64_t* pair_b,
+                   const float* d, const int64_t* pair_k, int64_t nseg,
+                   cudaStream_t stream) {
   constexpr int BM = T < 64 ? T : 64;
   constexpr int NB = T / BM;
   dim3 grid((unsigned)nseg, NB * NB);
-  pipelined_gemm_scatter_kernel<T, BM, ROUND, SCALED>
+  pipelined_gemm_scatter_kernel<T, BM, OP, ROUND, SCALED>
       <<<grid, (BM / 4) * (BM / 4), 0, stream>>>(
-          pool, b_src, seg_ptr, seg_dst, pair_a, pair_b, d, pair_k);
+          pool, (const OP*)a_src, (const OP*)b_src, seg_ptr, seg_dst, pair_a,
+          pair_b, d, pair_k);
   return cudaGetLastError();
 }
 
-template <bool ROUND, bool SCALED>
-cudaError_t dispatch_t(int T, float* pool, const float* b_src,
-                       const int64_t* seg_ptr, const int64_t* seg_dst,
-                       const int64_t* pair_a, const int64_t* pair_b,
-                       const float* d, const int64_t* pair_k, int64_t nseg,
-                       cudaStream_t s) {
+template <typename OP, bool ROUND, bool SCALED>
+cudaError_t dispatch_t(int T, float* pool, const void* a_src,
+                       const void* b_src, const int64_t* seg_ptr,
+                       const int64_t* seg_dst, const int64_t* pair_a,
+                       const int64_t* pair_b, const float* d,
+                       const int64_t* pair_k, int64_t nseg, cudaStream_t s) {
   switch (T) {
     case 32:
-      return launch<32, ROUND, SCALED>(pool, b_src, seg_ptr, seg_dst, pair_a,
-                                       pair_b, d, pair_k, nseg, s);
+      return launch<32, OP, ROUND, SCALED>(pool, a_src, b_src, seg_ptr,
+                                           seg_dst, pair_a, pair_b, d, pair_k,
+                                           nseg, s);
     case 64:
-      return launch<64, ROUND, SCALED>(pool, b_src, seg_ptr, seg_dst, pair_a,
-                                       pair_b, d, pair_k, nseg, s);
+      return launch<64, OP, ROUND, SCALED>(pool, a_src, b_src, seg_ptr,
+                                           seg_dst, pair_a, pair_b, d, pair_k,
+                                           nseg, s);
     case 128:
-      return launch<128, ROUND, SCALED>(pool, b_src, seg_ptr, seg_dst,
-                                        pair_a, pair_b, d, pair_k, nseg, s);
+      return launch<128, OP, ROUND, SCALED>(pool, a_src, b_src, seg_ptr,
+                                            seg_dst, pair_a, pair_b, d,
+                                            pair_k, nseg, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <typename OP>
+cudaError_t dispatch_op(int bf16, int T, float* pool, const void* a_src,
+                        const void* b_src, const int64_t* seg_ptr,
+                        const int64_t* seg_dst, const int64_t* pair_a,
+                        const int64_t* pair_b, const float* d,
+                        const int64_t* pair_k, int64_t nseg, cudaStream_t s) {
+  if (d != nullptr)
+    return bf16 ? dispatch_t<OP, true, true>(T, pool, a_src, b_src, seg_ptr,
+                                             seg_dst, pair_a, pair_b, d,
+                                             pair_k, nseg, s)
+                : dispatch_t<OP, false, true>(T, pool, a_src, b_src, seg_ptr,
+                                              seg_dst, pair_a, pair_b, d,
+                                              pair_k, nseg, s);
+  return bf16 ? dispatch_t<OP, true, false>(T, pool, a_src, b_src, seg_ptr,
+                                            seg_dst, pair_a, pair_b, d,
+                                            pair_k, nseg, s)
+              : dispatch_t<OP, false, false>(T, pool, a_src, b_src, seg_ptr,
+                                             seg_dst, pair_a, pair_b, d,
+                                             pair_k, nseg, s);
+}
+
 }  // namespace
 
 // bf16 = 1: operands rounded to bf16 on load; bf16 = 0: fp32 operands.
-// b_src: the pool b is read from (pool itself, or the other LU pool).
+// a_src, b_src: the tiles a and b are read from, (n, T, T) arrays of
+// fp32 (op_bf16 = 0: the pools, or fp32 operand arrays) or of bf16
+// (op_bf16 = 1: operand arrays rounded when they were made).
 // d != NULL: a's columns scaled by d[pair_k * T + k].
 extern "C" int pastix_pipelined_gemm_scatter(
-    void* pool, const void* b_src, const void* seg_ptr, const void* seg_dst,
-    const void* pair_a, const void* pair_b, const void* d,
-    const void* pair_k, long long nseg, int T, int bf16, void* stream) {
+    void* pool, const void* a_src, const void* b_src, const void* seg_ptr,
+    const void* seg_dst, const void* pair_a, const void* pair_b,
+    const void* d, const void* pair_k, long long nseg, int T, int bf16,
+    int op_bf16, void* stream) {
   if (nseg <= 0) return 0;
   if (nseg > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (d != nullptr && pair_k == nullptr) return (int)cudaErrorInvalidValue;
   auto P = (float*)pool;
-  auto bs = (const float*)b_src;
   auto sp = (const int64_t*)seg_ptr;
   auto sd = (const int64_t*)seg_dst;
   auto pa = (const int64_t*)pair_a;
@@ -172,13 +208,9 @@ extern "C" int pastix_pipelined_gemm_scatter(
   auto dd = (const float*)d;
   auto pk = (const int64_t*)pair_k;
   auto s = (cudaStream_t)stream;
-  if (d != nullptr)
-    return bf16 ? (int)dispatch_t<true, true>(T, P, bs, sp, sd, pa, pb, dd,
-                                              pk, nseg, s)
-                : (int)dispatch_t<false, true>(T, P, bs, sp, sd, pa, pb, dd,
-                                               pk, nseg, s);
-  return bf16 ? (int)dispatch_t<true, false>(T, P, bs, sp, sd, pa, pb, dd, pk,
-                                             nseg, s)
-              : (int)dispatch_t<false, false>(T, P, bs, sp, sd, pa, pb, dd,
-                                              pk, nseg, s);
+  return op_bf16 ? (int)dispatch_op<__nv_bfloat16>(bf16, T, P, a_src, b_src,
+                                                   sp, sd, pa, pb, dd, pk,
+                                                   nseg, s)
+                 : (int)dispatch_op<float>(bf16, T, P, a_src, b_src, sp, sd,
+                                           pa, pb, dd, pk, nseg, s);
 }

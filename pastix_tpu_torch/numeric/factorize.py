@@ -1,15 +1,24 @@
 """Numeric factorization: LLᵗ, LDLᵗ and LU, real (PyTorch counterpart of
 ``pastix_tpu/numeric/factorize.py``).
 
-The reference unrolls flop-heavy levels and scans the rest
-(``grouping.group_plan``, which exists to bound XLA program size); levels
-outside its unrolled set keep right-looking residue updates.  PyTorch runs
-eagerly and has no scan, so here every level is left-looking:
+The E2 (trailing update) schedule follows the reference's gate
+(:func:`e2_schedule`).  By default every level is left-looking (the
+reference's round-5 default): the reference unrolls flop-heavy levels and
+scans the rest (``grouping.group_plan``, which exists to bound XLA
+program size), and levels outside its unrolled set keep right-looking
+residue updates; PyTorch runs eagerly and has no scan, so here
 ``regroup_left(..., unrolled=None)`` moves every update to its target's
 level (or to the dense-tail pre-pass).  The only residue left is the
 updates into Schur columns, which no level factors: each level applies its
 own right after its TRSM (kernel K3), as the reference applies ``p_full``.
 Parity with the reference holds to rounding, not update for update.
+
+``PASTIX_E2_LL=0`` (or ``e2=``) selects the reference's round-4
+right-looking E2 instead: each level applies its own updates after its
+TRSM, through the panel stream (K3 on the TRSM's bf16 copy of the
+panels), the dst-block kernel K5, the panel-slab kernel K6 (each with K3
+on its fallback pairs) or K3 per pair.  Every level is unrolled (the
+reference's scanned levels run XLA's ``gemm_scatter``).
 
 LDLᵗ and LU factor the diagonal tiles with static pivoting (kernel K4);
 the number of clamped pivots stays on the device until the end.
@@ -18,6 +27,7 @@ the number of clamped pivots stays on the device until the end.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -26,12 +36,18 @@ import torch
 
 from pastix_tpu_torch.analyze.layout import SolverLayout
 from pastix_tpu_torch.config import Factorization
+from pastix_tpu_torch.numeric.block import (
+    block_plan, build_block_plan, gemm_scatter_block,
+)
 from pastix_tpu_torch.numeric.kernels import potrf_batch, round_to, tri_inv_batch
 from pastix_tpu_torch.numeric.leftlook import (
     build_ll_schedule, gemm_scatter_ll, ll_plan, regroup_left,
 )
 from pastix_tpu_torch.numeric.pipelined import (
     build_pipeline_schedule, gemm_scatter_pipelined, pipeline_plan,
+)
+from pastix_tpu_torch.numeric.slab import (
+    build_slab_plan, gemm_scatter_slab, slab_plan,
 )
 from pastix_tpu_torch.numeric.tile_factor import tile_factor
 
@@ -113,6 +129,56 @@ class Factors:
         return (self.pool, self.dinv)
 
 
+E2_MODES = ("left", "stream", "block", "slab", "pair")
+
+
+def e2_schedule(kind, update_dtype, e2=None):
+    """(mode, compact): the E2 schedule of ``build_factorize_fn``, by the
+    reference's gate (``pastix_tpu/numeric/factorize.py:527-555``).
+
+    ``e2`` (``"left"``, ``"stream"``, ``"block"``, ``"slab"`` or
+    ``"pair"``, with ``"+compact"`` for K3's compact operands) overrides
+    the environment.  Else the reference's variables decide, with its
+    defaults: ``PASTIX_E2_LL`` (1: left-looking), then ``PASTIX_E2_STREAM``
+    (1: the panel stream), then for LLᵗ and LDLᵗ ``PASTIX_E2_BLOCK`` (1)
+    and ``PASTIX_E2_SLAB`` (1), else per pair; LU goes stream or pair.
+    ``PASTIX_E2_COMPACT=1`` makes the K3 calls that read no stream gather
+    their operands (the reference's opt-in).  The port's recorded
+    deviation (ROADMAP.md C): left-looking also without an update dtype,
+    where the reference goes right-looking.  Stream without an update
+    dtype reads the pool, as the reference's levels do: that is the pair
+    schedule.  Block and slab exist for LLᵗ and LDLᵗ only."""
+    kind = Factorization(kind)
+    env = os.environ.get
+    if e2 is not None:
+        mode, plus, extra = e2.partition("+")
+        if mode not in E2_MODES or (plus and extra != "compact"):
+            raise ValueError(
+                f"e2={e2!r}: expected one of {E2_MODES}, optionally "
+                "with '+compact'")
+        compact = extra == "compact"
+    else:
+        compact = env("PASTIX_E2_COMPACT", "0") == "1"
+        if env("PASTIX_E2_LL", "1") != "0":
+            mode = "left"
+        elif env("PASTIX_E2_STREAM", "1") != "0":
+            mode = "stream"
+        elif kind == Factorization.LU:
+            mode = "pair"
+        elif env("PASTIX_E2_BLOCK", "1") != "0":
+            mode = "block"
+        elif env("PASTIX_E2_SLAB", "1") != "0":
+            mode = "slab"
+        else:
+            mode = "pair"
+    if kind == Factorization.LU and mode in ("block", "slab"):
+        raise ValueError(f"the {mode} E2 schedule is LLᵗ/LDLᵗ only (the "
+                         "reference's rule); LU runs stream or pair")
+    if mode == "stream" and update_dtype in (None, torch.float32):
+        mode = "pair"
+    return mode, compact
+
+
 @dataclasses.dataclass
 class _Level:
     cols: torch.Tensor  # the level's block columns
@@ -120,14 +186,25 @@ class _Level:
     tp: torch.Tensor  # pool idx of its panel tiles
     tc: torch.Tensor  # each panel's block column
     tcpos: torch.Tensor  # each panel's column position in the level
-    ll: list  # LLChunk plan of the updates into this level
-    schur: list  # PipeChunk plan of its updates into Schur columns
-    ll_nd: list  # LU: the Ut-side mirror of ll (off-diagonal targets)
-    schur_nd: list  # LU: the Ut-side mirror of schur
+    ll: list = dataclasses.field(default_factory=list)  # LLChunk plan of
+    # the updates into this level (left-looking)
+    schur: list = dataclasses.field(default_factory=list)  # PipeChunk plan
+    # of its updates into Schur columns (left-looking)
+    ll_nd: list = dataclasses.field(default_factory=list)  # LU: the
+    # Ut-side mirror of ll (off-diagonal targets)
+    schur_nd: list = dataclasses.field(default_factory=list)  # LU: the
+    # Ut-side mirror of schur
+    # right-looking: the level's own updates after its TRSM
+    full: list = dataclasses.field(default_factory=list)  # K3 (p_full)
+    nd: list = dataclasses.field(default_factory=list)  # LU Ut mirror
+    blk: list = dataclasses.field(default_factory=list)  # K5 (p_blk)
+    slab: list = dataclasses.field(default_factory=list)  # K6 (p_slab)
+    fb: list = dataclasses.field(default_factory=list)  # K3 on the
+    # block or slab plan's fallback pairs (p_fb)
 
 
 def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
-                       update_dtype=None, dense_tail=None):
+                       update_dtype=None, dense_tail=None, e2=None):
     """The program of ``kind`` for this pattern, in place on the pools,
     where the reference donates them to its jitted program:
 
@@ -148,16 +225,23 @@ def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
     (``plan_dense_tail``, LLᵗ only): the tail pre-pass (K1 again) and a
     blocked dense Cholesky of the trailing block.  ``update_dtype``
     (None, torch.float32 or torch.bfloat16) rounds the operands of every
-    trailing update.
+    trailing update.  ``e2`` picks the E2 schedule (:func:`e2_schedule`;
+    None: the reference's environment variables): this description is
+    the left-looking one, :func:`_build_right_looking` the others'.
 
-    ``fn.levels`` / ``fn.tail`` hold the K1 and K3 plans;
-    ``fn.e2_saved_flops`` counts the row-bounded savings against the
-    full-tile count."""
+    ``fn.levels`` / ``fn.tail`` hold the K1 and K3 plans (right-looking:
+    the K3, K5 and K6 plans); ``fn.e2_saved_flops`` counts the
+    row-bounded savings against the full-tile count; ``fn.e2`` and
+    ``fn.compact`` name the schedule."""
     kind = Factorization(kind)
     if kind not in (Factorization.LLT, Factorization.LDLT, Factorization.LU):
         raise NotImplementedError(f"{kind} is not ported (ROADMAP.md slice 3)")
     if dense_tail is not None and kind != Factorization.LLT:
         raise ValueError("the dense tail is LLᵗ only (the reference's rule)")
+    mode, compact = e2_schedule(kind, update_dtype, e2)
+    if mode != "left":
+        return _build_right_looking(layout, device, kind, update_dtype,
+                                    dense_tail, mode, compact)
     is_lu, scaled = kind == Factorization.LU, kind == Factorization.LDLT
     T = layout.T
     levels = dense_tail.levels_lo if dense_tail is not None else layout.levels
@@ -235,7 +319,8 @@ def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
                 for tp, tcpos, _ in panels(lv):
                     pool[tp] = torch.matmul(pool[tp], dinv_t[tcpos])
             if lv.schur:
-                gemm_scatter_pipelined(pool, lv.schur, update_dtype)
+                gemm_scatter_pipelined(pool, lv.schur, update_dtype,
+                                       compact=compact)
         if tail_plan:
             gemm_scatter_ll(pool, tail_plan, update_dtype)
         if tail_factor is not None:
@@ -256,7 +341,8 @@ def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
                     pool[tp] = (torch.matmul(pool[tp], linv_t[tcpos])
                                 / d[tc][:, None, :])
             if lv.schur:
-                gemm_scatter_pipelined(pool, lv.schur, update_dtype, d=d)
+                gemm_scatter_pipelined(pool, lv.schur, update_dtype, d=d,
+                                       compact=compact)
         return pool, d, npiv
 
     def fact_lu(pool: torch.Tensor, pool_u: torch.Tensor, eps: float):
@@ -278,10 +364,10 @@ def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
                     pool_u[tp] = torch.matmul(pool_u[tp], linv_t[tcpos])
             if lv.schur:
                 gemm_scatter_pipelined(pool, lv.schur, update_dtype,
-                                       src_pool=pool_u)
+                                       src_pool=pool_u, compact=compact)
             if lv.schur_nd:
                 gemm_scatter_pipelined(pool_u, lv.schur_nd, update_dtype,
-                                       src_pool=pool)
+                                       src_pool=pool, compact=compact)
         return pool, pool_u, npiv
 
     fn = {Factorization.LLT: fact_llt, Factorization.LDLT: fact_ldlt,
@@ -290,6 +376,193 @@ def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
     fn.levels = plan
     fn.tail = tail_plan
     fn.e2_saved_flops = e2_saved
+    fn.e2, fn.compact = mode, compact
+    return fn
+
+
+def _build_right_looking(layout, device, kind, update_dtype, dense_tail,
+                         mode, compact):
+    """The reference's round-4 right-looking program (``PASTIX_E2_LL=0``),
+    with the signatures of :func:`build_factorize_fn`.  Per level: the
+    diagonal tiles, the panel TRSM, then the level's own updates
+    (``lv.gemm_*``), every level unrolled:
+
+    - ``stream``: the TRSM also writes a bf16 copy of the level's panels
+      (LU: of both pools') in panel order, and K3 reads both operands
+      from it (``xab``; the reference's ``_trsm_stream``);
+    - ``block``: K5 over the dst-block plan, then K3 on its fallback;
+    - ``slab``: K6 over the panel-slab plan, then K3 on its fallback;
+    - ``pair``: K3 over the level's pairs (LU: b from ``pool_u``, and the
+      ``pool_u`` mirror of the off-diagonal targets with b from ``pool``);
+      a block or slab level whose plan keeps no pair runs so too.
+
+    ``compact``: K3 calls that read no stream gather their operands per
+    chunk.  The dense tail (LLᵗ) takes its updates from the levels' pairs
+    and has no pre-pass; Schur columns are ordinary targets."""
+    is_lu, scaled = kind == Factorization.LU, kind == Factorization.LDLT
+    T, nbc, npool = layout.T, layout.nbc, layout.npool
+    levels = dense_tail.levels_lo if dense_tail is not None else layout.levels
+    env = os.environ.get
+    diag_of_col = np.asarray(layout.lookup(np.arange(nbc), np.arange(nbc)))
+    rbounds = None
+    if layout.row_lo is not None and env("PASTIX_SLAB_BOUND", "1") != "0":
+        rbounds = (layout.row_lo, layout.row_hi)
+    slab_kw = {  # 0: per-level auto (C from the panel lengths, H = 4C)
+        "C": int(env("PASTIX_SLAB_C", "0")),
+        "H": int(env("PASTIX_SLAB_H", "0")),
+        "G": int(env("PASTIX_SLAB_G", "4")),
+        "min_panel": int(env("PASTIX_SLAB_MINPANEL", "6")),
+    }
+    stats = {"e2_saved": 0.0, "n_block_pairs": 0, "n_slab_pairs": 0}
+
+    def pipe(ga, gb, gd, gk=None, ext=None):
+        if not ga.size:
+            return []
+        return pipeline_plan(build_pipeline_schedule(
+            np.asarray(ga, np.int32), np.asarray(gb, np.int32),
+            np.asarray(gd, np.int32),
+            gk=None if gk is None else np.asarray(gk, np.int32),
+            group=_PIPE_GROUP, chunk=_PIPE_CHUNK, ext_tiles=ext,
+        ), device)
+
+    tens = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+    plan = []
+    for lv in levels:
+        r = _Level(
+            cols=tens(lv.cols), diag=tens(lv.diag), tp=tens(lv.trsm_panel),
+            tc=tens(lv.trsm_col),
+            tcpos=tens(np.searchsorted(lv.cols, lv.trsm_col)),
+        )
+        ga, gb, gd, gk = lv.gemm_a, lv.gemm_b, lv.gemm_d, lv.gemm_k
+        nd = np.asarray(lv.gemm_nondiag, bool)
+        ext = lv.trsm_panel if mode == "stream" else None
+        if ga.size and mode == "block":
+            bp = build_block_plan(ga, gb, gd, gk, layout.blk_row,
+                                  layout.blk_col, layout.keys, nbc, npool)
+            if bp.n_block_pairs:
+                r.blk = block_plan(bp, layout.blk_row, device)
+                r.fb = pipe(*bp.fallback)
+                st = bp.stats
+                stats["n_block_pairs"] += bp.n_block_pairs
+                # entries execute ha x hb class products on the TPU;
+                # the saving can be negative (the reference's count)
+                stats["e2_saved"] += (
+                    st["pairs_blk"] - st["exec_tile_products"]) * 2.0 * T ** 3
+        elif ga.size and mode == "slab":
+            sp_ = build_slab_plan(ga, gb, gd, gk, diag_of_col, npool,
+                                  rbounds=rbounds, T=T, **slab_kw)
+            if sp_.n_slab_pairs:
+                r.slab = slab_plan(sp_, T, device)
+                r.fb = pipe(*sp_.fallback)
+                st = sp_.stats
+                stats["n_slab_pairs"] += sp_.n_slab_pairs
+                stats["e2_saved"] += (
+                    st["pairs_slab"] * (1.0 - st["flop_frac"]) * 2.0 * T ** 3)
+        if ga.size and not (r.blk or r.slab):
+            r.full = pipe(ga, gb, gd, gk, ext=ext)
+            if is_lu and nd.any():
+                r.nd = pipe(ga[nd], gb[nd], gd[nd], ext=ext)
+        plan.append(r)
+    tail_factor = (
+        _build_tail_factor(dense_tail, T, device, update_dtype)
+        if dense_tail is not None else None
+    )
+    stream = mode == "stream"
+    k3 = lambda pool, chunks, **kw: gemm_scatter_pipelined(
+        pool, chunks, update_dtype, **kw)
+
+    def trsm(lv, sides):
+        """Panel TRSM of each (pool, fn(tp, tcpos, tc) -> panels) in
+        ``sides``, in chunks of _PANEL_CHUNK panels; in stream mode also
+        the bf16 panel streams, in the level's panel order."""
+        nt = lv.tp.numel()
+        xs = [torch.empty((nt, T, T), dtype=update_dtype, device=lv.tp.device)
+              for _ in sides] if stream else None
+        for lo in range(0, nt, _PANEL_CHUNK):
+            sl = slice(lo, lo + _PANEL_CHUNK)
+            tp, tcpos, tc = lv.tp[sl], lv.tcpos[sl], lv.tc[sl]
+            for i, (pool, panel) in enumerate(sides):
+                P = panel(tp, tcpos, tc)
+                pool[tp] = P
+                if stream:
+                    xs[i][sl] = P.to(update_dtype)
+        return xs
+
+    def e2_level(lv, pool, xs=None, d=None, pool_u=None):
+        """The level's updates after its TRSM (see the docstring)."""
+        if lv.blk or lv.slab:
+            if lv.blk:
+                gemm_scatter_block(pool, lv.blk, update_dtype, d=d)
+            else:
+                gemm_scatter_slab(pool, lv.slab, update_dtype, d=d)
+            if lv.fb:
+                k3(pool, lv.fb, d=d, compact=compact)
+            return
+        if xs is not None:
+            xab = xs[0] if pool_u is None else (xs[0], xs[1])
+            if lv.full:
+                k3(pool, lv.full, d=d, xab=xab)
+            if lv.nd:
+                k3(pool_u, lv.nd, xab=(xs[1], xs[0]))
+            return
+        if lv.full:
+            k3(pool, lv.full, d=d, src_pool=pool_u, compact=compact)
+        if lv.nd:
+            k3(pool_u, lv.nd, src_pool=pool, compact=compact)
+
+    def fact_llt(pool: torch.Tensor) -> torch.Tensor:
+        for lv in plan:
+            L = potrf_batch(pool[lv.diag])
+            pool[lv.diag] = L
+            if lv.tp.numel():
+                dinv_t = tri_inv_batch(L).transpose(1, 2)
+                xs = trsm(lv, [(pool, lambda tp, tcpos, tc: torch.matmul(
+                    pool[tp], dinv_t[tcpos]))])
+                e2_level(lv, pool, xs)
+        if tail_factor is not None:
+            tail_factor(pool)
+        return pool
+
+    def fact_ldlt(pool: torch.Tensor, eps: float):
+        d = torch.ones((nbc, T), dtype=pool.dtype, device=pool.device)
+        npiv = torch.zeros((), dtype=torch.int32, device=pool.device)
+        for lv in plan:
+            d[lv.cols] = tile_factor(pool, lv.diag, eps, npiv, lu=False)
+            if lv.tp.numel():
+                # L(I, J) = A(I, J) L⁻ᵗ D⁻¹
+                linv_t = tri_inv_batch(pool[lv.diag], unit=True).transpose(1, 2)
+                xs = trsm(lv, [(pool, lambda tp, tcpos, tc: torch.matmul(
+                    pool[tp], linv_t[tcpos]) / d[tc][:, None, :])])
+                e2_level(lv, pool, xs, d=d)
+        return pool, d, npiv
+
+    def fact_lu(pool: torch.Tensor, pool_u: torch.Tensor, eps: float):
+        npiv = torch.zeros((), dtype=torch.int32, device=pool.device)
+        for lv in plan:
+            tile_factor(pool, lv.diag, eps, npiv, lu=True)
+            if lv.tp.numel():
+                D = pool[lv.diag]
+                uinv = tri_inv_batch(D, upper=True)
+                linv_t = tri_inv_batch(D, unit=True).transpose(1, 2)
+                # L = A U⁻¹ and Ut = Aᵗ L⁻ᵗ; then A(I, K) -= L(I, J) U(J, K)
+                xs = trsm(lv, [
+                    (pool, lambda tp, tcpos, tc: torch.matmul(
+                        pool[tp], uinv[tcpos])),
+                    (pool_u, lambda tp, tcpos, tc: torch.matmul(
+                        pool_u[tp], linv_t[tcpos])),
+                ])
+                e2_level(lv, pool, xs, pool_u=pool_u)
+        return pool, pool_u, npiv
+
+    fn = {Factorization.LLT: fact_llt, Factorization.LDLT: fact_ldlt,
+          Factorization.LU: fact_lu}[kind]
+    fn.kind = kind
+    fn.levels = plan
+    fn.tail = []
+    fn.e2_saved_flops = stats["e2_saved"]
+    fn.e2, fn.compact = mode, compact
+    fn.n_block_pairs = stats["n_block_pairs"]
+    fn.n_slab_pairs = stats["n_slab_pairs"]
     return fn
 
 

@@ -12,10 +12,9 @@ at analysis time.
 (``csrc/pipelined_gemm_scatter.cu``) for a pool on a CUDA device and its
 plain twin ``gemm_scatter_pipelined_ref`` for a pool on the CPU, in the
 plain, the scaled (``d``, LDLᵗ) and the cross-pool (``src_pool``, LU)
-variants.  The TPU's compact and packed operand streams (``xab``,
-``compact``, ``ab_pack``) are formats of the reference's right-looking
-stream path, which the port's left-looking plan never produces; they
-raise (ROADMAP.md B3).
+variants, with operands read from the pools or from operand arrays: the
+panel TRSM's bf16 stream (``xab``), per-chunk gathers of the distinct
+operand tiles (``compact``) or stacked (a, b) pairs (``ab_pack``).
 """
 
 from __future__ import annotations
@@ -166,6 +165,16 @@ class PipeChunk:
     pair_a: torch.Tensor  # [n] pool index of a
     pair_b: torch.Tensor  # [n] pool index of b
     pair_k: torch.Tensor = None  # [n] source column of each pair (LDLᵗ d)
+    # positions of a and b in the panel TRSM's operand stream (a schedule
+    # built with ext_tiles), else None
+    ext_a: torch.Tensor = None
+    ext_b: torch.Tensor = None
+    # the compact form: the chunk's distinct a and b tiles (sorted pool
+    # indices) and each pair's positions among them
+    uniq_a: torch.Tensor = None
+    uniq_b: torch.Tensor = None
+    cpos_a: torch.Tensor = None
+    cpos_b: torch.Tensor = None
 
     @property
     def nseg(self) -> int:
@@ -184,55 +193,106 @@ def pipeline_plan(schedule, device) -> list:
         if not valid.any():
             continue
         gd = np.asarray(t["gd"], np.int64)[valid]
+        ga = np.asarray(t["ga"], np.int64)[valid]
+        gb = np.asarray(t["gb"], np.int64)[valid]
         starts = np.flatnonzero(np.r_[True, gd[1:] != gd[:-1]])
         tens = lambda a: torch.as_tensor(
             np.ascontiguousarray(a, np.int64), device=device
         )
+        ext = "uniq_a" not in t
+        # the schedule's compact tables (pads repeat the last real pair,
+        # so its distinct tiles are the valid pairs' own)
+        uniq_a = np.unique(ga) if ext else np.asarray(t["uniq_a"])
+        uniq_b = np.unique(gb) if ext else np.asarray(t["uniq_b"])
         out.append(PipeChunk(
             n_pairs=int(gd.size),
             seg_ptr=tens(np.r_[starts, gd.size]),
             seg_dst=tens(gd[starts]),
-            pair_a=tens(np.asarray(t["ga"])[valid]),
-            pair_b=tens(np.asarray(t["gb"])[valid]),
+            pair_a=tens(ga),
+            pair_b=tens(gb),
             pair_k=(tens(np.asarray(t["gk"])[valid]) if "gk" in t else None),
+            ext_a=tens(np.asarray(t["ga_c"])[valid]) if ext else None,
+            ext_b=tens(np.asarray(t["gb_c"])[valid]) if ext else None,
+            uniq_a=tens(uniq_a),
+            uniq_b=tens(uniq_b),
+            cpos_a=tens(np.searchsorted(uniq_a, ga)),
+            cpos_b=tens(np.searchsorted(uniq_b, gb)),
         ))
     return out
 
 
-def _refuse_variants(xab, compact, ab_pack) -> None:
-    for name, v in (("xab", xab), ("compact", compact),
-                    ("ab_pack", ab_pack or None)):
-        if v is not None:
-            raise NotImplementedError(
-                f"gemm_scatter_pipelined: the {name} operand stream is a "
-                "format of the reference's right-looking stream path, which "
-                "the port does not produce; not ported (ROADMAP.md B3)"
+def _operands(pool, src, c, update_dtype, xab, compact, ab_pack):
+    """(Xa, Xb, pos_a, pos_b): the tiles a and b of chunk ``c`` are
+    ``Xa[pos_a]`` and ``Xb[pos_b]``.
+
+    - plain: the pools, at the pairs' pool indices;
+    - ``xab``: the panel TRSM's stream (a tensor, or the (Xa, Xb) pair of
+      LU), at the positions of a schedule built with ``ext_tiles``;
+    - ``compact``: the chunk's distinct a tiles of ``pool`` and b tiles of
+      ``src``, gathered once and cast to the update dtype;
+    - ``ab_pack``: every pair's (a, b) stacked and cast, a at 2i and b at
+      2i + 1."""
+    cast = (lambda x: x.to(torch.bfloat16)) if is_bf16(update_dtype) else (
+        lambda x: x)
+    if xab is not None:
+        if c.ext_a is None:
+            raise ValueError("xab needs a plan built with ext_tiles")
+        Xa, Xb = xab if isinstance(xab, (tuple, list)) else (xab, xab)
+        return Xa, Xb, c.ext_a, c.ext_b
+    if compact:
+        return (cast(pool[c.uniq_a]), cast(src[c.uniq_b]), c.cpos_a,
+                c.cpos_b)
+    if ab_pack:
+        AB = cast(torch.stack([pool[c.pair_a], src[c.pair_b]], dim=1))
+        pos = 2 * torch.arange(c.n_pairs, device=pool.device)
+        AB = AB.view(-1, *AB.shape[2:])
+        return AB, AB, pos, pos + 1
+    return pool, src, c.pair_a, c.pair_b
+
+
+def _check_xab(pool, xab) -> None:
+    for X in (xab if isinstance(xab, (tuple, list)) else (xab,)):
+        if X.dtype not in (torch.float32, torch.bfloat16) or X.dim() != 3 or (
+            X.shape[1:] != pool.shape[1:] or not X.is_contiguous()
+            or X.device != pool.device
+        ):
+            raise ValueError(
+                "xab must be contiguous (n, T, T) float32 or bfloat16 "
+                f"tensors on the pool's device, got {X.dtype} "
+                f"{tuple(X.shape)}"
             )
 
 
 def gemm_scatter_pipelined(pool: torch.Tensor, plan, update_dtype=None, *,
-                           d=None, src_pool=None, xab=None, compact=None,
+                           d=None, src_pool=None, xab=None, compact=False,
                            ab_pack=False):
-    """pool[gd] -= op(pool[ga] diag(d[gk])) @ op(src[gb])^T over every
-    chunk of ``plan`` (:func:`pipeline_plan`), in place.
+    """pool[gd] -= op(a diag(d[gk])) @ op(b)^T over every chunk of
+    ``plan`` (:func:`pipeline_plan`), in place.
 
-    ``op`` rounds to ``update_dtype`` (bf16, or None/fp32 for fp32
-    operands), after the scaling; products accumulate in fp32.  b is read
-    from ``src_pool`` when given (the LU cross-pool update), else from
-    ``pool``; ``d`` (nbc, T) scales a's columns by the pivots of the
-    pair's source column (LDLᵗ; the plan needs ``gk``).  The reference
-    splits fp32 operands into three bf16 passes (its TPU has no fp32
-    matrix unit); the kernel multiplies them in fp32 instead (ROADMAP.md
-    C).  A pool on a CUDA device goes through the kernel K3, one launch
-    per chunk, in order on the current stream; a pool on the CPU through
+    a and b come from the pools (a from ``pool``, b from ``src_pool`` when
+    given, the LU cross-pool update, else from ``pool``) or from operand
+    arrays (:func:`_operands`): ``xab`` the panel TRSM's stream,
+    ``compact`` per-chunk gathers of the distinct tiles, ``ab_pack``
+    stacked pairs.  ``op`` rounds to ``update_dtype`` (bf16, or None/fp32
+    for fp32 operands), after the scaling; an operand array of bf16 is
+    rounded already, and a scaled one is rounded again, as the
+    reference's kernel does.  Products accumulate in fp32.  ``d`` (nbc,
+    T) scales a's columns by the pivots of the pair's source column
+    (LDLᵗ; the plan needs ``gk``).  The reference splits fp32 operands
+    into three bf16 passes (its TPU has no fp32 matrix unit); the kernel
+    multiplies them in fp32 instead (ROADMAP.md C).  A pool on a CUDA
+    device goes through the kernel K3, one launch per chunk, in order on
+    the current stream; a pool on the CPU through
     :func:`gemm_scatter_pipelined_ref`."""
-    _refuse_variants(xab, compact, ab_pack)
     check_pool(pool)
     check_variant(pool, d, src_pool, plan)
+    if xab is not None:
+        _check_xab(pool, xab)
     bf16 = is_bf16(update_dtype)
     if pool.device.type == "cpu":
-        return gemm_scatter_pipelined_ref(pool, plan, update_dtype, d=d,
-                                          src_pool=src_pool)
+        return gemm_scatter_pipelined_ref(
+            pool, plan, update_dtype, d=d, src_pool=src_pool, xab=xab,
+            compact=compact, ab_pack=ab_pack)
     if pool.device.type != "cuda":
         raise ValueError(f"unsupported device {pool.device}")
     lib = _build.get_lib()
@@ -240,12 +300,16 @@ def gemm_scatter_pipelined(pool: torch.Tensor, plan, update_dtype=None, *,
     T = pool.shape[1]
     src = pool if src_pool is None else src_pool
     for c in plan:
+        Xa, Xb, pos_a, pos_b = _operands(pool, src, c, update_dtype, xab,
+                                         compact, ab_pack)
+        if Xa.dtype != Xb.dtype:
+            raise ValueError("the a and b operand arrays differ in dtype")
         err = lib.pastix_pipelined_gemm_scatter(
-            pool.data_ptr(), src.data_ptr(), c.seg_ptr.data_ptr(),
-            c.seg_dst.data_ptr(), c.pair_a.data_ptr(), c.pair_b.data_ptr(),
-            None if d is None else d.data_ptr(),
+            pool.data_ptr(), Xa.data_ptr(), Xb.data_ptr(),
+            c.seg_ptr.data_ptr(), c.seg_dst.data_ptr(), pos_a.data_ptr(),
+            pos_b.data_ptr(), None if d is None else d.data_ptr(),
             None if d is None else c.pair_k.data_ptr(),
-            c.nseg, T, int(bf16), stream,
+            c.nseg, T, int(bf16), int(Xa.dtype == torch.bfloat16), stream,
         )
         _build.check(err, "gemm_scatter_pipelined")
         gemm_scatter_pipelined.launches += 1
@@ -257,29 +321,49 @@ gemm_scatter_pipelined.twin_launches = 0  # calls of the plain twin
 
 
 def gemm_scatter_pipelined_ref(pool: torch.Tensor, plan, update_dtype=None,
-                               *, d=None, src_pool=None):
+                               *, d=None, src_pool=None, xab=None,
+                               compact=False, ab_pack=False):
     """Plain PyTorch twin of :func:`gemm_scatter_pipelined`, on any device.
 
-    Operands are scaled, rounded to the update dtype and multiplied in
-    fp32, full tiles (B3 has no row bounds); differs from the kernel only
-    in summation order.  Chunks run in order, as the kernel's launches
-    do."""
+    Operands are taken as the kernel takes them, scaled, rounded to the
+    update dtype and multiplied in fp32, full tiles (B3 has no row
+    bounds); differs from the kernel only in summation order.  Chunks
+    run in order, as the kernel's launches do."""
     check_pool(pool)
     check_variant(pool, d, src_pool, plan)
+    if xab is not None:
+        _check_xab(pool, xab)
     is_bf16(update_dtype)
     gemm_scatter_pipelined.twin_launches += 1
     src = pool if src_pool is None else src_pool
     for c in plan:
+        Xa, Xb, pos_a, pos_b = _operands(pool, src, c, update_dtype, xab,
+                                         compact, ab_pack)
         dst = torch.repeat_interleave(
             c.seg_dst, c.seg_ptr[1:] - c.seg_ptr[:-1]
         )
-        for lo in range(0, c.n_pairs, _REF_BATCH):
-            sl = slice(lo, lo + _REF_BATCH)
-            a = pool[c.pair_a[sl]]
-            if d is not None:
-                a = a * d[c.pair_k[sl]][:, None, :]
-            a = round_to(a, update_dtype)
-            b = round_to(src[c.pair_b[sl]], update_dtype)
-            pool.index_add_(0, dst[sl], torch.bmm(a, b.transpose(1, 2)),
-                            alpha=-1.0)
+        pairs_ref(pool, Xa, Xb, pos_a, pos_b, dst, update_dtype, d=d,
+                  pair_k=c.pair_k)
+    return pool
+
+
+def pairs_ref(pool, Xa, Xb, pos_a, pos_b, dst, update_dtype, *, d=None,
+              pair_k=None, rows=None):
+    """pool[dst] -= op(Xa[pos_a] diag(d[pair_k])) @ op(Xb[pos_b])^T over a
+    pair list, in order, in batches of _REF_BATCH pairs: the plain form
+    of every right-looking E2 kernel.  ``rows`` (r0, ha) keeps only the
+    rows [r0, r0 + ha) of each pair's a (the slab kernel's row bounds)."""
+    for lo in range(0, dst.numel(), _REF_BATCH):
+        sl = slice(lo, lo + _REF_BATCH)
+        a = Xa[pos_a[sl]].to(torch.float32)
+        if d is not None:
+            a = a * d[pair_k[sl]][:, None, :]
+        a = round_to(a, update_dtype)
+        if rows is not None:
+            r = torch.arange(a.shape[1], device=a.device)
+            r0, ha = rows[0][sl, None], rows[1][sl, None]
+            a = a * ((r >= r0) & (r < r0 + ha))[:, :, None]
+        b = round_to(Xb[pos_b[sl]].to(torch.float32), update_dtype)
+        pool.index_add_(0, dst[sl], torch.bmm(a, b.transpose(1, 2)),
+                        alpha=-1.0)
     return pool

@@ -21,11 +21,17 @@ from pastix_tpu_torch.config import Factorization, PastixConfig
 from pastix_tpu_torch.generators import convection_diffusion_3d, poisson_3d
 from pastix_tpu_torch.sparse import SparseMatrix
 
+import pastix_tpu_torch.numeric.block as BK
 import pastix_tpu_torch.numeric.leftlook as LL
 import pastix_tpu_torch.numeric.pipelined as PL
+import pastix_tpu_torch.numeric.slab as SB
 import pastix_tpu_torch.numeric.sweep_kernels as SW
 import pastix_tpu_torch.numeric.tile_factor as TF
 from pastix_tpu_torch.pastix import Pastix
+
+# xdist runs six test files at once: one intra-op thread per process keeps
+# six full-width PyTorch thread pools from oversubscribing the cores
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.gpu
 
@@ -308,3 +314,102 @@ def test_kinds_on_cuda_match_cpu(cuda, kind, schur):
     assert gpu.report.residual <= 1e-10
     assert gpu.report.static_pivots == cpu.report.static_pivots
     assert np.linalg.norm(x - xc) <= 1e-8 * np.linalg.norm(xc)
+
+
+def _rl_level(T, dev, kind=Factorization.LLT, nx=10):
+    """A factored solver (LDLᵗ: its d) and its level with the most
+    right-looking pairs."""
+    if kind == Factorization.LLT:
+        s = Pastix(poisson_3d(nx), PastixConfig(tile_size=T), device=dev)
+    else:
+        _, s = _kind_solver(kind, T, dev, nx=nx)
+    s.factorize()
+    lv = max(s.layout.levels, key=lambda lv: lv.gemm_a.size)
+    return s, lv
+
+
+def _close_dst(got, ref, dst):
+    scale = float(ref[dst.unique()].abs().max())
+    assert float((got - ref).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("T", [32, 64, 128])
+@pytest.mark.parametrize("upd", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("form", ["xab", "compact", "ab_pack"])
+@pytest.mark.parametrize("kind", [Factorization.LLT, Factorization.LDLT,
+                                  Factorization.LU],
+                         ids=["plain", "d", "src_pool"])
+def test_k3_operand_arrays_match_twin(cuda, T, upd, form, kind):
+    """K3 reading its operands from arrays: the panel stream of the
+    busiest level (xab; LU the (L, Uᵗ) pair), per-chunk gathers
+    (compact) or stacked pairs (ab_pack), in chunks of 7 pairs."""
+    s, lv = _rl_level(T, cuda, kind)
+    f = s.factors
+    gk = lv.gemm_k if kind == Factorization.LDLT else None
+    plan = PL.pipeline_plan(PL.build_pipeline_schedule(
+        lv.gemm_a, lv.gemm_b, lv.gemm_d, gk=gk, group=2, chunk=7,
+        ext_tiles=lv.trsm_panel if form == "xab" else None), cuda)
+    kw = {"d": f.d} if kind == Factorization.LDLT else {}
+    if kind == Factorization.LU:
+        kw["src_pool"] = f.pool_u
+    if form == "xab":
+        tp = torch.as_tensor(lv.trsm_panel, device=cuda).long()
+        xl = f.pool[tp].to(upd).contiguous()
+        kw["xab"] = ((xl, f.pool_u[tp].to(upd).contiguous())
+                     if kind == Factorization.LU else xl)
+    else:
+        kw[form] = True
+    before = PL.gemm_scatter_pipelined.launches
+    got = PL.gemm_scatter_pipelined(f.pool.clone(), plan, upd, **kw)
+    assert PL.gemm_scatter_pipelined.launches == before + len(plan)
+    ref = PL.gemm_scatter_pipelined_ref(f.pool.clone(), plan, upd, **kw)
+    _close_e2(got, ref, plan)
+
+
+@pytest.mark.parametrize("T", [32, 64, 128])
+@pytest.mark.parametrize("upd", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("kind", [Factorization.LLT, Factorization.LDLT],
+                         ids=["plain", "d"])
+def test_k5_matches_twin(cuda, T, upd, kind):
+    """K5 on the busiest level's block plan with every entry kept (gate
+    100) and chunks of 16 entries."""
+    s, lv = _rl_level(T, cuda, kind, nx=12)
+    lay, f = s.layout, s.factors
+    bp = BK.build_block_plan(lv.gemm_a, lv.gemm_b, lv.gemm_d, lv.gemm_k,
+                             lay.blk_row, lay.blk_col, lay.keys, lay.nbc,
+                             lay.npool, chunk=16, gate=100.0)
+    plan = BK.block_plan(bp, lay.blk_row, cuda)
+    assert plan and bp.n_block_pairs == lv.gemm_a.size
+    kw = {"d": f.d} if kind == Factorization.LDLT else {}
+    before = BK.gemm_scatter_block.launches
+    got = BK.gemm_scatter_block(f.pool.clone(), plan, upd, **kw)
+    assert BK.gemm_scatter_block.launches == before + len(plan)
+    ref = BK.gemm_scatter_block_ref(f.pool.clone(), plan, upd, **kw)
+    _close_dst(got, ref, torch.cat([c.pairs()[2] for c in plan]))
+
+
+@pytest.mark.parametrize("T", [32, 64, 128])
+@pytest.mark.parametrize("upd", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("kind", [Factorization.LLT, Factorization.LDLT],
+                         ids=["plain", "d"])
+def test_k6_matches_twin(cuda, T, upd, kind, monkeypatch):
+    """K6 on the busiest level's slab plan (C=4, H=8, row bounds, the cost
+    gate off, chunks of 64 pairs)."""
+    monkeypatch.setenv("PASTIX_SLAB_GATE", "0")
+    s, lv = _rl_level(T, cuda, kind, nx=12)
+    lay, f = s.layout, s.factors
+    doc = lay.lookup(np.arange(lay.nbc), np.arange(lay.nbc))
+    sp_ = SB.build_slab_plan(lv.gemm_a, lv.gemm_b, lv.gemm_d, lv.gemm_k, doc,
+                             lay.npool, C=4, H=8, G=2, min_panel=2,
+                             chunk=64, rbounds=(lay.row_lo, lay.row_hi), T=T)
+    plan = SB.slab_plan(sp_, T, cuda)
+    assert plan and sp_.n_slab_pairs > 0
+    kw = {"d": f.d} if kind == Factorization.LDLT else {}
+    before = SB.gemm_scatter_slab.launches
+    got = SB.gemm_scatter_slab(f.pool.clone(), plan, upd, **kw)
+    assert SB.gemm_scatter_slab.launches == before + len(plan)
+    ref = SB.gemm_scatter_slab_ref(f.pool.clone(), plan, upd, **kw)
+    _close_dst(got, ref, torch.cat([c.seg_dst for c in plan]))

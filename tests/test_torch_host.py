@@ -31,6 +31,12 @@ from pastix_tpu_torch.config import PastixConfig
 from pastix_tpu_torch.generators import laplacian_2d, poisson_3d
 from pastix_tpu_torch.pastix import Pastix
 
+import torch
+
+# xdist runs six test files at once: one intra-op thread per process keeps
+# six full-width PyTorch thread pools from oversubscribing the cores
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = 16
 CASES = {
@@ -58,6 +64,24 @@ def _eq(a, b, path="") -> None:
         assert a == b, path
 
 
+def _load_reference_native():
+    """Load the reference's native library, waiting out a build that
+    another process has under way.  The reference compiles it in place at
+    first use, so on a fresh checkout an xdist worker can find it half
+    written and order in Python, whose order differs from the native one
+    the port uses (this file failed so in one of two ``-n 6`` runs of a
+    fresh checkout)."""
+    import time
+
+    import pastix_tpu.native as JN
+
+    for _ in range(120):
+        if JN.get_lib() is not None:
+            return
+        JN._TRIED = False
+        time.sleep(0.5)
+
+
 @pytest.fixture(scope="module", params=[
     (name, schur) for name in CASES for schur in (False, True)
 ], ids=lambda p: f"{p[0]}-{'schur' if p[1] else 'plain'}")
@@ -65,6 +89,7 @@ def symbolic(request):
     """(reference, port) solvers after order and symbfact."""
     name, schur = request.param
     gen, j_gen, size, ns = CASES[name]
+    _load_reference_native()
     ref = JPastix(j_gen(size), JPastixConfig(tile_size=T))
     port = Pastix(gen(size),
                   PastixConfig(tile_size=T, align_supernodes=not schur),

@@ -9,6 +9,12 @@ import sys
 
 import pytest
 
+import torch
+
+# xdist runs six test files at once: one intra-op thread per process keeps
+# six full-width PyTorch thread pools from oversubscribing the cores
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "pastix_tpu_torch")
 SLICE_MODULES = [
@@ -21,10 +27,12 @@ SLICE_MODULES = [
     "pastix_tpu_torch.generators",
     "pastix_tpu_torch.krylov",
     "pastix_tpu_torch.native",
+    "pastix_tpu_torch.numeric.block",
     "pastix_tpu_torch.numeric.factorize",
     "pastix_tpu_torch.numeric.kernels",
     "pastix_tpu_torch.numeric.leftlook",
     "pastix_tpu_torch.numeric.pipelined",
+    "pastix_tpu_torch.numeric.slab",
     "pastix_tpu_torch.numeric.sweep_kernels",
     "pastix_tpu_torch.numeric.tile_factor",
     "pastix_tpu_torch.order",

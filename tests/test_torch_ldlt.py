@@ -53,6 +53,10 @@ from pastix_tpu_torch.numeric import tile_factor as TF
 from pastix_tpu_torch.pastix import Pastix
 from pastix_tpu_torch.sparse import SparseMatrix
 
+# xdist runs six test files at once: one intra-op thread per process keeps
+# six full-width PyTorch thread pools from oversubscribing the cores
+torch.set_num_threads(1)
+
 NX, T = 8, 32
 LDLT = Factorization.LDLT
 

@@ -34,6 +34,10 @@ import pastix_tpu_torch.numeric.leftlook as LL
 from pastix_tpu_torch.numeric import kernels as K
 from pastix_tpu_torch.pastix import Pastix
 
+# xdist runs six test files at once: one intra-op thread per process keeps
+# six full-width PyTorch thread pools from oversubscribing the cores
+torch.set_num_threads(1)
+
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 

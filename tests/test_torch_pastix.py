@@ -23,6 +23,10 @@ from pastix_tpu_torch.convert import factors_from_jax
 from pastix_tpu_torch.generators import poisson_3d
 from pastix_tpu_torch.pastix import Pastix
 
+# xdist runs six test files at once: one intra-op thread per process keeps
+# six full-width PyTorch thread pools from oversubscribing the cores
+torch.set_num_threads(1)
+
 NX = 12
 
 

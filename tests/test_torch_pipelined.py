@@ -10,7 +10,8 @@ updates, rtol = atol = 1e-3 (the reference's fp32 products are three
 bf16 passes, the twin's fp32).  The scaled (``d``, LDLᵗ) and cross-pool
 (``src_pool``, LU) variants the same way, against the interpret-mode
 kernel with the same variant and the XLA ``gemm_scatter(scale_cols=)`` /
-``gemm_scatter_ab``.
+``gemm_scatter_ab``; the operand arrays (``xab``, ``compact``,
+``ab_pack``) against the interpret-mode kernel reading the same arrays.
 """
 
 import jax.numpy as jnp
@@ -22,6 +23,10 @@ import pastix_tpu.numeric.pallas_kernels as JPK
 from pastix_tpu.numeric import kernels as JK
 
 from pastix_tpu_torch.numeric import pipelined as PL
+
+# xdist runs six test files at once: one intra-op thread per process keeps
+# six full-width PyTorch thread pools from oversubscribing the cores
+torch.set_num_threads(1)
 
 NPOOL, T, NG, NSRC = 40, 16, 33, 20
 UPD = {"bf16": (jnp.bfloat16, torch.bfloat16), "none": (None, None)}
@@ -195,13 +200,16 @@ def test_cpu_pool_runs_the_twin(data):
 
 @pytest.mark.parametrize("variant", ["d", "src_pool", "xab", "compact",
                                      "ab_pack"])
-def test_unported_variants_raise(data, variant):
-    """The TPU operand streams (xab, compact, ab_pack) raise naming the
-    ROADMAP; d and src_pool are ported and refuse a malformed operand
-    (and ``d`` a plan built without gk)."""
+def test_unported_variants_raise(data, variant_data, variant):
+    """d and src_pool refuse a malformed operand (and ``d`` a plan built
+    without gk).  The TPU operand streams, once refused, are ported:
+    ``xab`` (a bf16 panel stream of the source tiles, with the scaled
+    variant: round(round(a) d)), ``compact`` and ``ab_pack`` each match
+    the reference's interpret-mode kernel with the same stream, bf16
+    updates, one chunk, rtol = atol = 1e-3."""
     pool, ga, gb, gd = data
-    pool = torch.from_numpy(pool.copy())
     if variant in ("d", "src_pool"):
+        pool = torch.from_numpy(pool.copy())
         bad = {"d": torch.ones(3, T + 1), "src_pool": torch.ones(2, T, T)}
         with pytest.raises(ValueError, match=variant):
             PL.gemm_scatter_pipelined(pool, [], None, **{variant: bad[variant]})
@@ -212,5 +220,25 @@ def test_unported_variants_raise(data, variant):
                 PL.gemm_scatter_pipelined(pool, plan, None,
                                           d=torch.ones(8, T))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B3"):
-        PL.gemm_scatter_pipelined(pool, [], None, **{variant: True})
+    _, d, gk = variant_data
+    ext = np.arange(NSRC) if variant == "xab" else None
+    gk_ = gk if variant == "xab" else None
+    j_kw, t_kw = {}, {}
+    if variant == "xab":
+        X = pool[:NSRC]
+        j_kw = {"xab": jnp.asarray(X).astype(jnp.bfloat16),
+                "d": jnp.asarray(d)}
+        t_kw = {"xab": torch.from_numpy(X.copy()).to(torch.bfloat16),
+                "d": torch.from_numpy(d)}
+    else:
+        j_kw = t_kw = {variant: True}
+    want = np.asarray(JPK.gemm_scatter_pipelined(
+        jnp.asarray(pool),
+        JPK.build_pipeline_schedule(ga, gb, gd, gk=gk_, group=2,
+                                    ext_tiles=ext),
+        update_dtype=jnp.bfloat16, **j_kw))
+    plan = PL.pipeline_plan(PL.build_pipeline_schedule(
+        ga, gb, gd, gk=gk_, group=2, ext_tiles=ext), "cpu")
+    got = PL.gemm_scatter_pipelined(torch.from_numpy(pool.copy()), plan,
+                                    torch.bfloat16, **t_kw).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)

@@ -27,13 +27,38 @@ from pastix_tpu_torch.config import PastixConfig
 from pastix_tpu_torch.generators import poisson_3d as port_poisson_3d
 from pastix_tpu_torch.pastix import Pastix
 
+import torch
+
+# xdist runs six test files at once: one intra-op thread per process keeps
+# six full-width PyTorch thread pools from oversubscribing the cores
+torch.set_num_threads(1)
+
 
 def _cfg(cls=PastixConfig):
     return cls(tile_size=32, update_dtype="bfloat16")
 
 
+def _load_reference_native():
+    """Load the reference's native library, waiting out a build that
+    another process has under way.  The reference compiles it in place at
+    first use, so on a fresh checkout an xdist worker can find it half
+    written and order in Python, whose order differs from the native one
+    the port uses (this file failed so in one of two ``-n 6`` runs of a
+    fresh checkout)."""
+    import time
+
+    import pastix_tpu.native as JN
+
+    for _ in range(120):
+        if JN.get_lib() is not None:
+            return
+        JN._TRIED = False
+        time.sleep(0.5)
+
+
 @pytest.fixture(scope="module")
 def solvers():
+    _load_reference_native()
     A = poisson_3d(12)
     ref = JPastix(A, _cfg(JPastixConfig))
     ref.order()

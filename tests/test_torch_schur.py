@@ -27,6 +27,12 @@ from pastix_tpu_torch.generators import laplacian_2d, poisson_3d
 from pastix_tpu_torch.numeric import pipelined as PL
 from pastix_tpu_torch.pastix import Pastix
 
+import torch
+
+# xdist runs six test files at once: one intra-op thread per process keeps
+# six full-width PyTorch thread pools from oversubscribing the cores
+torch.set_num_threads(1)
+
 CASES = {
     "laplacian_2d(12)": (laplacian_2d, j_laplacian_2d, 12, 17),
     "poisson_3d(6)": (poisson_3d, j_poisson_3d, 6, 36),

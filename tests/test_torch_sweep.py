@@ -23,6 +23,10 @@ from pastix_tpu_torch.generators import convection_diffusion_3d, poisson_3d
 import pastix_tpu_torch.numeric.sweep_kernels as SW
 from pastix_tpu_torch.pastix import Pastix
 
+# xdist runs six test files at once: one intra-op thread per process keeps
+# six full-width PyTorch thread pools from oversubscribing the cores
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _interpret(monkeypatch):
