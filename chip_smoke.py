@@ -8,7 +8,7 @@ prints the final ``ok`` line:
 
 1. device: a CUDA device is required; prints the card's name and power
    limit (nvidia-smi);
-2. build: compiles the hand-written CUDA kernels K1-K6 from ``csrc/``
+2. build: compiles the hand-written CUDA kernels K1-K10 from ``csrc/``
    (one nvcc per source, in parallel) and the port's native host library
    (g++; prints whether it was built or the Python ordering runs);
 3. kernels: each kernel against its plain PyTorch twin on the same inputs,
@@ -33,8 +33,16 @@ prints the final ``ok`` line:
    LDLᵗ) and convection_diffusion_3d(24) (LU) T=128 layouts, bf16 and
    fp32, 1e-4 max|ref|: K3 reading operand arrays (the panel stream
    ``xab`` plain, ``d`` and LU's (L, Uᵗ) with its mirror; ``compact``
-   plain, ``d`` and ``src_pool``; ``ab_pack``), K5 (dst-block E2, every
-   entry kept) and K6 (panel-slab E2, cost gate off) plain and ``d``;
+   plain, ``d`` and ``src_pool``), K5 (dst-block E2, every entry kept)
+   and K6 (panel-slab E2, cost gate off) plain and ``d``; then slice 4 on
+   the same pairs and dtypes: the E2 harness's variants, K3 on the pools
+   at G=1 and 2, K3 ``ab_pack`` at G=1, 2 and 4, K9 (one-pair-per-step
+   E2 over ``sort_triples``) and K10 (compact-gather E2 over a group-1
+   schedule), plain, ``d`` and ``src_pool``; and K7 (fused Cholesky +
+   inverse in place on the pool) on the poisson_3d(24) level with the
+   most diagonal tiles, garbage planted above their diagonals and a pad
+   sentinel in the index (every other tile bit-identical), and K8 on the
+   same tiles symmetrized, 1e-5 max|ref|;
 4. main path: ``Pastix(poisson_3d(--nx), T=128, bf16 updates)`` through
    order, symbfact, analyze, factorize (twice, the second timed) and a
    refined solve of b = A.1 to a fp64 residual <= 1e-10; the launch counts
@@ -82,6 +90,23 @@ prints the final ``ok`` line:
    block or slab pair of the matrix the gate is opened, and the log says
    so; then that kernel against its twin at the path's busiest level,
    timed and bound;
+12. fused-diagonal LLᵗ path (the reference's ``PASTIX_FUSED_DIAG=1``):
+   ``poisson_3d(--nx)``, dense tail on, bf16 updates, left-looking and
+   right-looking stream, each as in 4 (factorize twice, the second
+   timed; a refined solve to <= 1e-10): K7 and K8 must launch (K1; or K3
+   and not K1), no twin may run, and ``cholesky_ex`` runs only at the
+   levels without panels; ``fact_ms`` beside the unfused one of phases 4
+   and 11; then K7 on the left path's level with the most diagonal tiles
+   against its twin and against ``cholesky_ex`` + ``solve_triangular``
+   (two library calls), and K8 on one tile (the dense tail's call), both
+   timed and bound;
+13. E2 A/B harness (the reference's ``exp_pipe.py``): on exp_pipe's
+   default triples (ng=8192, a pool of 12000 T=128 tiles, segments of
+   about 3 pairs) and on the busiest right-looking level of phase 12's
+   stream solver (its factored pool), bf16 and fp32, every variant of
+   phase 3's slice 4 (K3 G=1/2, ``ab_pack`` G=1/2/4, K9, K10) against its
+   twin (1e-4 max|ref|), then kernel and twin timed and bound; the
+   launches are those of the timed runs, counted from 0;
 
 then the card's nvidia-smi line, one JSON line of the kernels (each
 variant on its own line of the list, ``launches`` from the path that runs
@@ -102,6 +127,7 @@ import numpy as np
 TOL_E2 = 1e-4  # max|kernel - twin| / max|twin| for K1 and K3
 TOL_K2 = 1e-5  # the same for the sweeps
 TOL_K4 = 1e-5  # the same for the static-pivot tile factorization
+TOL_K7 = 1e-5  # the same for the fused Cholesky + inverse (K7, K8)
 TOL_RES = 1e-10  # fp64 ||b - A x|| / ||b|| after refinement
 TOL_S = 1e-4  # max|S - S_ref| / max|S_ref| with fp32 updates
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
@@ -372,6 +398,8 @@ def schur_reference(A, schur):
 
 def counters():
     from pastix_tpu_torch.numeric import block as BK
+    from pastix_tpu_torch.numeric import chol_inv as CI
+    from pastix_tpu_torch.numeric import fused as FU
     from pastix_tpu_torch.numeric import leftlook as LL
     from pastix_tpu_torch.numeric import pipelined as PL
     from pastix_tpu_torch.numeric import slab as SB
@@ -380,7 +408,9 @@ def counters():
 
     return {"K1": LL.gemm_scatter_ll, "K2": SW.run_sweep,
             "K3": PL.gemm_scatter_pipelined, "K4": TF.tile_factor,
-            "K5": BK.gemm_scatter_block, "K6": SB.gemm_scatter_slab}
+            "K5": BK.gemm_scatter_block, "K6": SB.gemm_scatter_slab,
+            "K7": CI.chol_inv_pool, "K8": CI.chol_inv,
+            "K9": FU.gemm_scatter_fused, "K10": FU.gemm_scatter_blockspec}
 
 
 def reset_counts():
@@ -422,7 +452,7 @@ def kind_cfg(kind, upd="bfloat16"):
     return PastixConfig(tile_size=128, update_dtype=upd, factorization=kind)
 
 
-def drive(path, A, cfg, dev, need, schur=None):
+def drive(path, A, cfg, dev, need, schur=None, forbid=()):
     """One path at full width, its counts set to 0 just before and read
     just after: order, symbfact, analyze, factorize twice (the second
     timed), then a refined solve of b = A.1 (``schur``: ``get_schur`` and
@@ -483,7 +513,7 @@ def drive(path, A, cfg, dev, need, schur=None):
         raise AssertionError("solution has the wrong shape or is not finite")
     if not max(res, s.report.residual) <= TOL_RES:
         raise AssertionError(f"{path}: residual {res:.3e} above {TOL_RES}")
-    launches = read_counts(path, need)
+    launches = read_counts(path, need, forbid)
     return s, launches, {
         "fact_ms": fact_s[1] * 1e3, "gflops": gflops,
         "solve_ms": s.report.solve_time * 1e3, "get_schur_ms": get_ms,
@@ -875,7 +905,8 @@ def rl_checked(name, run, run_ref, steps, pools, upd, T, errs, key):
     ``pools`` naming their tensors: each step against its twin on copies
     of its pool (max|d| to ``errs[key]``), then all steps as one, kernel
     and twin timed, and bound by :func:`e2_work` at the bf16 peak
-    (``upd`` bf16) or the fp32 one."""
+    (``upd`` bf16) or the fp32 one.  Returns (kernel ms, twin ms, bound,
+    the kernel's launches in its timed runs, counted from 0)."""
     import torch
 
     for dst, _, _, chunks, kw in steps:
@@ -888,7 +919,9 @@ def rl_checked(name, run, run_ref, steps, pools, upd, T, errs, key):
         for dst, _, _, chunks, kw in steps:
             fn(work[dst], chunks, upd, **kw)
 
+    reset_counts()
     ms = cuda_ms(lambda: step(run))
+    launched = run.launches
     plain = cuda_ms(lambda: step(run_ref))
     flops, nbytes = e2_work(
         [(d, a, b, c, "d" in kw) for d, a, b, c, kw in steps], T)
@@ -899,7 +932,7 @@ def rl_checked(name, run, run_ref, steps, pools, upd, T, errs, key):
         f"{pairs} pairs, {str(upd)[6:]}): kernel {ms:.3f} ms, twin "
         f"{plain:.3f} ms, bound {bd[0]:.4f} ms ({bd[1]})")
     del work
-    return ms, plain, bd
+    return ms, plain, bd, launched
 
 
 def rl_steps(f, lv, mode, form=None):
@@ -964,14 +997,118 @@ def rl_busiest(fact_fn, mode):
         c.n_pairs for a in attr for c in getattr(lv, a)))
 
 
+def e2_variants(f, ga, gb, gd, gk, nd, dev):
+    """The variants of the E2 A/B harness (the reference's ``exp_pipe.py``)
+    on one pair list: K3 on the pools at G=1 and G=2, K3 ``ab_pack`` at
+    G=1, 2 and 4 (the schedule's group; the port drops its pad pairs), K9
+    (``gemm_scatter_fused`` over ``sort_triples``) and K10
+    (``gemm_scatter_blockspec`` over a group-1 schedule).  ``f`` holds the
+    pools (``pool``, ``pool_u`` for LU) and ``d`` (LDLᵗ, scaled by ``gk``);
+    LU takes b from the other pool and adds the pool_u mirror of the pairs
+    ``nd``.  Yields (label, errs key, run, run_ref, steps), the steps as
+    :func:`rl_checked` takes them."""
+    from pastix_tpu_torch.numeric import fused as FU
+    from pastix_tpu_torch.numeric import pipelined as PL
+
+    kw = {} if f.d is None else {"d": f.d}
+    gk = gk if f.d is not None else None
+
+    def sides(build, extra=None):
+        extra = extra or {}
+        if f.pool_u is None:
+            return [("pool", "pool", "pool", build(ga, gb, gd, gk),
+                     dict(kw, **extra))]
+        out = [("pool", "pool", "pool_u", build(ga, gb, gd, None),
+                dict(extra, src_pool=f.pool_u))]
+        if nd.any():
+            out.append(("pool_u", "pool_u", "pool",
+                        build(ga[nd], gb[nd], gd[nd], None),
+                        dict(extra, src_pool=f.pool)))
+        return out
+
+    def pipe(G):
+        return lambda a, b, d, k: PL.pipeline_plan(
+            PL.build_pipeline_schedule(a, b, d, gk=k, group=G), dev)
+
+    k3 = (PL.gemm_scatter_pipelined, PL.gemm_scatter_pipelined_ref)
+    for G in (1, 2):
+        yield (f"K3 G={G}", "K3", *k3, sides(pipe(G)))
+    for G in (1, 2, 4):
+        yield (f"K3 ab_pack G={G}", "K3pack", *k3,
+               sides(pipe(G), {"ab_pack": True}))
+    yield ("K9", "K9", FU.gemm_scatter_fused, FU.gemm_scatter_fused_ref,
+           sides(lambda a, b, d, k: FU.fused_plan(
+               *FU.sort_triples(a, b, d, k), device=dev)))
+    yield ("K10", "K10", FU.gemm_scatter_blockspec,
+           FU.gemm_scatter_blockspec_ref,
+           sides(lambda a, b, d, k: FU.blockspec_plan(
+               PL.build_pipeline_schedule(a, b, d, gk=k), dev)))
+
+
+def check_chol_inv_kernels(dev, errs):
+    """Phase 3 for slice 4: K7 in place on the poisson_3d(24) T=128
+    coefinit pool at the level with the most diagonal tiles and panels,
+    garbage planted above their diagonals and a pad sentinel in the index
+    (L and L⁻¹ against the twin, every other tile bit-identical); K8 on
+    the same tiles symmetrized from their lower triangles."""
+    import scipy.sparse as sp
+    import torch
+    from pastix_tpu_torch.config import Factorization
+    from pastix_tpu_torch.generators import poisson_3d
+    from pastix_tpu_torch.numeric import chol_inv as CI
+
+    s, _ = analyzed(poisson_3d(24), kind_cfg(Factorization.LLT), dev)
+    lv = max((lv for lv in s._fact_fn.levels if lv.tp.numel()),
+             key=lambda lv: lv.diag.numel())
+    vals = torch.as_tensor(sp.coo_matrix(s._A_perm).data.astype(np.float32),
+                           device=dev)
+    pool = s._coef_fn(vals)
+    B, T, npool = lv.diag.numel(), pool.shape[1], pool.shape[0]
+    g = torch.Generator(device=dev).manual_seed(3)
+    pool[lv.diag] += torch.triu(torch.randn(B, T, T, generator=g,
+                                            device=dev), 1)
+    idx = torch.cat([lv.diag, torch.tensor([npool + 3], device=dev)])
+    got, ref = pool.clone(), pool.clone()
+    dinv = CI.chol_inv_pool(got, idx)
+    dref = CI.chol_inv_pool_ref(ref, idx)
+    torch.cuda.synchronize()
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    err = max(rel(got[lv.diag], ref[lv.diag]), rel(dinv, dref))
+    rest = torch.ones(npool, dtype=torch.bool, device=dev)
+    rest[lv.diag] = False
+    same = bool(torch.equal(got[rest], pool[rest])) and not dinv[-1].any()
+    ok = err <= TOL_K7 and same
+    log(f"K7 busiest fused level ({B} tiles + 1 sentinel, upper garbage): "
+        f"max|d|/max|ref| {err:.3e}, other tiles untouched {same} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K7 disagrees with its twin")
+    errs["K7"] = max(errs["K7"], err)
+    tiles = torch.tril(pool[lv.diag])
+    sym = (tiles + torch.tril(tiles, -1).transpose(1, 2)).contiguous()
+    L, X = CI.chol_inv(sym)
+    Lr, Xr = CI.chol_inv_ref(sym)
+    torch.cuda.synchronize()
+    err = max(rel(L, Lr), rel(X, Xr))
+    log(f"K8 the same tiles symmetrized ({B}): max|d|/max|ref| {err:.3e} "
+        f"-> {'ok' if err <= TOL_K7 else 'FAIL'}")
+    if not err <= TOL_K7:
+        raise AssertionError("K8 disagrees with its twin")
+    errs["K8"] = max(errs["K8"], err)
+    del s, pool, got, ref
+
+
 def check_rightlook_kernels(dev, errs):
-    """Phase 3 for slice 3: K3's operand arrays (the panel stream ``xab``
-    plain, ``d`` and LU's (L, Uᵗ) with its mirror; ``compact`` plain,
-    ``d`` and ``src_pool``; ``ab_pack``), K5 and K6 plain and ``d``,
-    each against its twin in bf16 and fp32, on the busiest level's pairs
-    of the poisson_3d(24) (LLᵗ and LDLᵗ) and convection_diffusion_3d(24)
-    (LU) T=128 layouts.  K5 keeps every entry of the level (gate 100);
-    K6 runs the default slab sizes, its cost gate off."""
+    """Phase 3 for slices 3 and 4: K3's operand arrays (the panel stream
+    ``xab`` plain, ``d`` and LU's (L, Uᵗ) with its mirror; ``compact``
+    plain, ``d`` and ``src_pool``), the E2 harness's variants
+    (:func:`e2_variants`: K3 on the pools at G=1 and 2, ``ab_pack`` at
+    G=1, 2 and 4, K9 and K10, plain, ``d`` and ``src_pool``), K5 and K6
+    plain and ``d``, each against its twin in bf16 and fp32, on the
+    busiest level's pairs of the poisson_3d(24) (LLᵗ and LDLᵗ) and
+    convection_diffusion_3d(24) (LU) T=128 layouts.  K5 keeps every entry
+    of the level (gate 100); K6 runs the default slab sizes, its cost gate
+    off."""
     import torch
     from pastix_tpu_torch.config import Factorization
     from pastix_tpu_torch.generators import convection_diffusion_3d, poisson_3d
@@ -1006,15 +1143,18 @@ def check_rightlook_kernels(dev, errs):
                 errs["K3xab"] = max(errs["K3xab"], check_e2(
                     "K3", run, ref, pools[dst], chunks, upd,
                     f"xab {kind.name} {dst} {str(upd)[6:]}", **kw))
-            for form in ("compact", "ab_pack"):
-                if form == "ab_pack" and kind != LLT:
-                    continue
-                steps, pools, run, ref = rl_steps(f, lv, "pair", form)
+            steps, pools, run, ref = rl_steps(f, lv, "pair", "compact")
+            for dst, _, _, chunks, kw in steps:
+                errs["K3compact"] = max(errs["K3compact"], check_e2(
+                    "K3", run, ref, pools[dst], chunks, upd,
+                    f"compact {kind.name} {dst} {str(upd)[6:]}", **kw))
+            pools = {"pool": f.pool, "pool_u": f.pool_u}
+            for label, key, run, ref, steps in e2_variants(
+                    f, ga, gb, gd, gk, nd, dev):
                 for dst, _, _, chunks, kw in steps:
-                    key = "K3compact" if form == "compact" else "K3pack"
                     errs[key] = max(errs[key], check_e2(
-                        "K3", run, ref, pools[dst], chunks, upd,
-                        f"{form} {kind.name} {dst} {str(upd)[6:]}", **kw))
+                        label, run, ref, pools[dst], chunks, upd,
+                        f"{kind.name} {dst} {str(upd)[6:]}", **kw))
             if kind == LU:
                 continue
             bp = BK.build_block_plan(ga, gb, gd, gk, lay.blk_row,
@@ -1139,6 +1279,176 @@ def rightlook_path(label, A, kind, modes, dev, errs):
     return out
 
 
+def chol_timed(solver, errs):
+    """K7 on the level with the most diagonal tiles of the fused path (of
+    A's coefinit, fresh copies each call, the copy timed alone and taken
+    off), against its twin and against ``cholesky_ex`` +
+    ``solve_triangular`` on the same tiles (two library calls, not one);
+    K8 on one tile symmetrized (the dense tail's call shape), the same
+    three ways.  Bound: 2/3 T^3 flop a tile at the fp32 peak, or the
+    tile's bytes at the memory rate: the lower triangle of M read
+    (T (T + 1) / 2 floats, all the kernel reads), L and X written.  Returns
+    (K7 numbers, K8 numbers), each (ms, twin ms, bound, two-call ms)."""
+    import scipy.sparse as sp
+    import torch
+    from pastix_tpu_torch.numeric import chol_inv as CI
+
+    fn = solver._fact_fn
+    lv = max((lv for lv in fn.levels if lv.tp.numel()),
+             key=lambda lv: lv.diag.numel())
+    dev = lv.diag.device
+    vals = torch.as_tensor(sp.coo_matrix(solver._A_perm).data.astype(
+        np.float32), device=dev)
+    tiles = solver._coef_fn(vals)[lv.diag].clone()
+    B, T = tiles.shape[0], tiles.shape[1]
+    idx = torch.arange(B, device=dev)
+    work = tiles.clone()
+
+    def two_calls(t):
+        eye = torch.eye(T, device=dev).expand_as(t)
+        L, _ = torch.linalg.cholesky_ex(t)
+        return torch.linalg.solve_triangular(L, eye, upper=False)
+
+    copy_ms = cuda_ms(lambda: work.copy_(tiles))
+    ms = cuda_ms(lambda: (work.copy_(tiles),
+                          CI.chol_inv_pool(work, idx))) - copy_ms
+    plain = cuda_ms(lambda: (work.copy_(tiles),
+                             CI.chol_inv_pool_ref(work, idx)),
+                    reps=2) - copy_ms
+    lib = cuda_ms(lambda: two_calls(tiles))
+    tile_bytes = (T * (T + 1) // 2 + 2 * T * T) * 4
+    bd = bound(B * 2.0 / 3.0 * T ** 3, PEAK_FP32, B * tile_bytes)
+    got, ref = tiles.clone(), tiles.clone()
+    d1, d2 = CI.chol_inv_pool(got, idx), CI.chol_inv_pool_ref(ref, idx)
+    err = max(float((got - ref).abs().max() / ref.abs().max()),
+              float((d1 - d2).abs().max() / d2.abs().max()))
+    log(f"timing K7 busiest fused level ({B} tiles): kernel {ms:.3f} ms, "
+        f"twin {plain:.3f} ms, bound {bd[0]:.4f} ms ({bd[1]}), "
+        f"cholesky_ex + solve_triangular (two library calls) {lib:.3f} ms; "
+        f"max|d|/max|ref| {err:.3e}")
+    if not err <= TOL_K7:
+        raise AssertionError("K7 disagrees with its twin at the path level")
+    errs["K7"] = max(errs["K7"], err)
+    lo = torch.tril(tiles[:1])
+    one = (lo + torch.tril(lo, -1).transpose(1, 2)).contiguous()
+    ms8 = cuda_ms(lambda: CI.chol_inv(one))
+    plain8 = cuda_ms(lambda: CI.chol_inv_ref(one), reps=2)
+    lib8 = cuda_ms(lambda: two_calls(one))
+    bd8 = bound(2.0 / 3.0 * T ** 3, PEAK_FP32, tile_bytes)
+    log(f"timing K8 one tile (the dense tail's call, {solver._dense_tail.q} "
+        f"a factorization): kernel {ms8:.3f} ms, twin {plain8:.3f} ms, "
+        f"bound {bd8[0]:.5f} ms ({bd8[1]}), cholesky_ex + solve_triangular "
+        f"(two library calls) {lib8:.3f} ms")
+    return (ms, plain, bd, lib), (ms8, plain8, bd8, lib8)
+
+
+def fused_path(nx, dev, errs, left_ms, stream_ms):
+    """Phase 12: the fused-diagonal LLᵗ path (``PASTIX_FUSED_DIAG=1``) on
+    ``poisson_3d(nx)`` with the dense tail, bf16 updates, left-looking and
+    right-looking stream (``PASTIX_E2_LL=0``), each through ``drive``: K7
+    and K8 must launch (K1, or K3 and not K1), no twin, and
+    ``cholesky_ex`` only at the levels without panels (twice each, one
+    per factorization).  ``fact_ms`` is set beside the unfused path's of
+    phases 4 and 11 (``left_ms``, ``stream_ms``).  Then K7 and K8 timed
+    (:func:`chol_timed`).  Returns ({e2: (launches, numbers)}, the stream
+    solver, K7 numbers, K8 numbers)."""
+    from pastix_tpu_torch.config import Factorization
+    from pastix_tpu_torch.generators import poisson_3d
+    from pastix_tpu_torch.numeric import factorize as F
+
+    out, solver = {}, None
+    for e2, base in (("left", left_ms), ("stream", stream_ms)):
+        env = {"PASTIX_FUSED_DIAG": "1",
+               "PASTIX_E2_LL": "0" if e2 == "stream" else "1"}
+        old = {k: os.environ.get(k) for k in env}
+        calls, potrf = [], F.potrf_batch
+        F.potrf_batch = lambda t: calls.append(int(t.shape[0])) or potrf(t)
+        os.environ.update(env)
+        try:
+            need = ("K2", "K7", "K8") + (("K1",) if e2 == "left" else ("K3",))
+            s, launches, num = drive(
+                f"fused-DIAG LLT {e2} poisson_3d({nx})", poisson_3d(nx),
+                kind_cfg(Factorization.LLT), dev, need,
+                forbid=() if e2 == "left" else ("K1",))
+        finally:
+            F.potrf_batch = potrf
+            for k, v in old.items():
+                if v is None:
+                    del os.environ[k]
+                else:
+                    os.environ[k] = v
+        fn = s._fact_fn
+        bare = [lv for lv in fn.levels if not lv.tp.numel()]
+        fused = len(fn.levels) - len(bare)
+        log(f"  {e2}: {fused} fused levels, {len(bare)} without panels; "
+            f"K7 {launches['K7']} K8 {launches['K8']} launches, cholesky_ex "
+            f"{len(calls)} calls; fact_ms {num['fact_ms']:.1f} (unfused "
+            f"{base:.1f}, {num['fact_ms'] / base - 1:+.1%})")
+        if not (fn.fused_diag and fn.e2 == e2
+                and launches["K7"] == 2 * fused
+                and launches["K8"] == 2 * s._dense_tail.q
+                and len(calls) == 2 * len(bare)):
+            raise AssertionError(f"the fused {e2} path did not fuse every "
+                                 "level with panels and the tail")
+        num["unfused_fact_ms"] = base
+        out[e2] = (launches, num)
+        if e2 == "stream":
+            solver = s
+        else:
+            k7, k8 = chol_timed(s, errs)
+        del s
+    return out, solver, k7, k8
+
+
+def ab_harness(solver, dev, errs):
+    """Phase 13: the reference's E2 A/B harness (``exp_pipe.py``) on two
+    pair lists, bf16 and fp32 operands, every variant of
+    :func:`e2_variants` against its twin, then kernel and twin timed (CUDA
+    events, a warm-up, mean of 5) and bound (:func:`e2_work`): exp_pipe's
+    default triples (ng=8192 on a pool of 12000 T=128 tiles, a and b from
+    the first half, dst segments of about 3 pairs; numpy default_rng(0)
+    drawn as there) and the busiest right-looking level of
+    the phase-12 stream solver (``poisson_3d(--nx)`` LLᵗ, its factored
+    pool).  The counts are each kernel's launches in its timed runs.
+    Returns {(input, dtype, label): (ms, twin ms, bound, launches)}."""
+    import types
+
+    import torch
+
+    ng, npool, T, seg = 8192, 12000, 128, 3
+    rng = np.random.default_rng(0)
+    nsrc = npool // 2
+    ga = rng.integers(0, nsrc, ng).astype(np.int32)
+    gb = rng.integers(0, nsrc, ng).astype(np.int32)
+    ndst = max(1, ng // seg)
+    gd = (nsrc + rng.integers(0, min(ndst, npool - nsrc), ng)).astype(
+        np.int32)
+    P = torch.from_numpy(rng.standard_normal((npool, T, T)).astype(
+        np.float32)).to(dev)
+    levels = (solver._dense_tail.levels_lo if solver._dense_tail is not None
+              else solver.layout.levels)
+    lv = max(levels, key=lambda lv: lv.gemm_a.size)
+    inputs = (
+        ("exp_pipe", types.SimpleNamespace(pool=P, pool_u=None, d=None),
+         (ga, gb, gd)),
+        ("poisson level", solver.factors,
+         (lv.gemm_a, lv.gemm_b, lv.gemm_d)),
+    )
+    out = {}
+    for name, f, (a, b, d) in inputs:
+        log(f"E2 A/B harness, {name}: {a.size} pairs, "
+            f"{np.unique(d).size} dst tiles")
+        pools = {"pool": f.pool}
+        for upd in (torch.bfloat16, torch.float32):
+            for label, key, run, ref, steps in e2_variants(
+                    f, a, b, d, None, None, dev):
+                out[name, str(upd)[6:], label] = rl_checked(
+                    f"{label} {name}", run, ref, steps, pools, upd, T, errs,
+                    key)
+    del P
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--nx", type=int, default=64,
@@ -1200,7 +1510,7 @@ def main() -> int:
     lv = busiest_level(ks._fact_fn)
     errs = {k: 0.0 for k in ("K1", "K1d", "K1x", "K2", "K2lu", "K3", "K3d",
                              "K3x", "K4lu", "K4ldlt", "K3xab", "K3compact",
-                             "K3pack", "K5", "K6")}
+                             "K3pack", "K5", "K6", "K7", "K8", "K9", "K10")}
     for chunks, where in ((lv.ll, "busiest level"), (ks._fact_fn.tail, "tail")):
         if not chunks:
             raise AssertionError(f"K1: no {where} chunks at this size")
@@ -1248,8 +1558,10 @@ def main() -> int:
 
     # 3, slice 2: the LDLᵗ and LU variants on T=128 layouts of size 24
     check_variants(dev, errs, sch24)
-    # 3, slice 3: K3's operand arrays, K5 and K6 on the same layouts
+    # 3, slices 3 and 4: K3's operand arrays, the E2 harness's variants
+    # (K9, K10), K5 and K6 on the same layouts; K7 and K8
     check_rightlook_kernels(dev, errs)
+    check_chol_inv_kernels(dev, errs)
 
     # 4.-5. the main path, and its kernels at its shapes
     launches, main_num, k1, k2 = main_path(args.nx, dev, errs)
@@ -1282,6 +1594,18 @@ def main() -> int:
             f"LU right-looking convection_diffusion_3d({args.lu_nx})",
             convection_diffusion_3d(args.lu_nx), LU, ("stream",), dev, errs),
     }
+
+    # 12. the fused-diagonal LLᵗ path (PASTIX_FUSED_DIAG=1)
+    fused, fsolver, k7, k8 = fused_path(
+        args.nx, dev, errs, main_num["fact_ms"],
+        rl["LLT"]["stream"][1]["fact_ms"])
+
+    # 13. the E2 A/B harness (exp_pipe.py); the counts are those of each
+    # case's timed runs
+    ab = ab_harness(fsolver, dev, errs)
+    del fsolver
+    if min(v[3] for v in ab.values()) == 0:
+        raise AssertionError("the E2 harness did not launch every variant")
 
     # no single PyTorch call computes a gather-GEMM-scatter over a pair
     # list or a block-sparse triangular sweep: library_ms is null but for
@@ -1343,8 +1667,28 @@ def main() -> int:
         kernels.append(entry(name, f"{src}.cu", at,
                              launches_m[RL_KERNEL[mode]],
                              max(errs[k3key], errs[f"{kind} {mode}"]), timed))
-    log(f"K3 ab_pack (phase 3 only, no path builds it): max|d| "
-        f"{errs['K3pack']:.3e}")
+    # slice 4: K7 and K8 with launches from the fused left-looking path;
+    # K9, K10 and ab_pack from the harness, each row the poisson level's
+    # case in bf16, its launches too (the other cases in the log)
+    at = "pastix_tpu/numeric/pallas_kernels.py"
+    ab_row = lambda label: ab["poisson level", "bfloat16", label]
+    kernels += [
+        entry("chol_inv_pool", "chol_inv.cu", f"{at}:1021",
+              fused["left"][0]["K7"], errs["K7"], k7),
+        entry("chol_inv", "chol_inv.cu", f"{at}:902", fused["left"][0]["K8"],
+              errs["K8"], k8),
+        entry("gemm_scatter_fused", "segment_gemm_scatter.cu", f"{at}:186",
+              ab_row("K9")[3], errs["K9"], ab_row("K9")),
+        entry("gemm_scatter_blockspec", "segment_gemm_scatter.cu",
+              f"{at}:806", ab_row("K10")[3], errs["K10"], ab_row("K10")),
+        entry(f"{k3}[ab_pack]", f"{k3}.cu", k3_at,
+              ab_row("K3 ab_pack G=1")[3], errs["K3pack"],
+              ab_row("K3 ab_pack G=1")),
+    ]
+    for (name, upd, label), (ms, plain, bd, n) in ab.items():
+        log(f"harness {name} {upd} {label}: " + json.dumps(
+            {"ms": ms, "plain_ms": plain, "bound_ms": bd[0],
+             "bound_by": bd[1], "launches": n}))
     for name, num in (("LLT", main_num), ("LLT Schur", schur_runs["K3"][1]),
                       ("LU", lu_num), ("LDLT", ldlt_num),
                       ("LU Schur", schur_runs["K3x"][1]),
@@ -1353,6 +1697,8 @@ def main() -> int:
     for kind, runs in rl.items():
         for mode, (_, num, _) in runs.items():
             log(f"path {kind} right-looking {mode}: " + json.dumps(num))
+    for e2, (_, num) in fused.items():
+        log(f"path LLT fused-DIAG {e2}: " + json.dumps(num))
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

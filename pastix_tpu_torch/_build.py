@@ -23,8 +23,9 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _OUT = os.path.join(_HERE, "_build")
 _SOURCES = ("ll_gemm_scatter.cu", "sweep.cu", "pipelined_gemm_scatter.cu",
-            "tile_factor.cu", "block_gemm_scatter.cu", "slab_gemm_scatter.cu")
-_HEADERS = ("common.cuh",)
+            "tile_factor.cu", "block_gemm_scatter.cu", "slab_gemm_scatter.cu",
+            "chol_inv.cu", "segment_gemm_scatter.cu")
+_HEADERS = ("common.cuh", "segment_gemm.cuh")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -121,6 +122,10 @@ def get_lib() -> ctypes.CDLL:
     lib.pastix_slab_gemm_scatter.restype = I
     lib.pastix_tile_factor.argtypes = [P] * 4 + [L, I, I, ctypes.c_float, P]
     lib.pastix_tile_factor.restype = I
+    lib.pastix_chol_inv.argtypes = [P, P, L, P, P, L, I, P]
+    lib.pastix_chol_inv.restype = I
+    lib.pastix_segment_gemm_scatter.argtypes = [P] * 9 + [L, I, I, P]
+    lib.pastix_segment_gemm_scatter.restype = I
     lib.pastix_cuda_error.argtypes = [I]
     lib.pastix_cuda_error.restype = ctypes.c_char_p
     _LIB = lib

@@ -35,17 +35,16 @@
 // disjoint (the host schedule asserts it), so no CTA reads a tile another
 // CTA writes.  The CTA keeps its 64 x 64 block in registers (4 x 4 per
 // thread) over all pairs of the segment, staging 32-deep k slices of a and
-// b through shared memory, then does one read-modify-write of the dst
-// block.  wgmma/TMA tensor-core tiles are later work.
+// b through shared memory (segment_gemm.cuh, shared with K9/K10), then
+// does one read-modify-write of the dst block.  wgmma/TMA tensor-core
+// tiles are later work.
 
-#include "common.cuh"
+#include "segment_gemm.cuh"
 
 namespace {
 
-constexpr int BK = 32;
-
-template <int T, int BM, typename OP, bool ROUND, bool SCALED>
-__global__ void __launch_bounds__((BM / 4) * (BM / 4))
+template <int T, typename OP, bool ROUND, bool SCALED>
+__global__ void __launch_bounds__(seg::Shape<T>::NT)
 pipelined_gemm_scatter_kernel(float* __restrict__ pool,
                               const OP* __restrict__ a_src,
                               const OP* __restrict__ b_src,
@@ -55,20 +54,15 @@ pipelined_gemm_scatter_kernel(float* __restrict__ pool,
                               const int64_t* __restrict__ pair_b,
                               const float* __restrict__ d,
                               const int64_t* __restrict__ pair_k) {
-  constexpr int BN = BM;
-  constexpr int NT = (BM / 4) * (BN / 4);
-  constexpr int NB = T / BM;
-  constexpr int LD = BM * BK / NT;  // slice elements per thread
+  constexpr int BM = seg::Shape<T>::BM;
+  constexpr int NB = seg::Shape<T>::NB;
   constexpr int64_t TT = (int64_t)T * T;
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN + 1];
+  __shared__ float As[seg::BK][BM + 1];
+  __shared__ float Bs[seg::BK][BM + 1];
 
-  const int64_t seg = blockIdx.x;
+  const int64_t sg = blockIdx.x;
   const int r0 = (blockIdx.y / NB) * BM;
-  const int c0 = (blockIdx.y % NB) * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / 4);
-  const int ty = tid / (BN / 4);
+  const int c0 = (blockIdx.y % NB) * BM;
 
   float acc[4][4];
 #pragma unroll
@@ -76,52 +70,12 @@ pipelined_gemm_scatter_kernel(float* __restrict__ pool,
 #pragma unroll
     for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
 
-  const int64_t p_end = seg_ptr[seg + 1];
-  for (int64_t p = seg_ptr[seg]; p < p_end; ++p) {
-    const OP* a = a_src + pair_a[p] * TT;
-    const OP* b = b_src + pair_b[p] * TT;
-    const float* dk = SCALED ? d + pair_k[p] * T : nullptr;
-    for (int k0 = 0; k0 < T; k0 += BK) {
-      // LD loads of a and of b per thread, all issued before the first
-      // store to shared memory (element e = tid + l NT of the slice)
-      float av_ld[LD], bv_ld[LD];
-#pragma unroll
-      for (int l = 0; l < LD; ++l) {
-        const int e = tid + l * NT;
-        const int kk = k0 + e % BK;
-        av_ld[l] = load_scaled<ROUND, SCALED>(
-            a + (int64_t)(r0 + e / BK) * T + kk, SCALED ? __ldg(dk + kk) : 1.f);
-        bv_ld[l] = load_op<ROUND>(b + (int64_t)(c0 + e / BK) * T + k0 +
-                                  e % BK);
-      }
-#pragma unroll
-      for (int l = 0; l < LD; ++l) {
-        const int e = tid + l * NT;
-        As[e % BK][e / BK] = av_ld[l];
-        Bs[e % BK][e / BK] = bv_ld[l];
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) {
-        float av[4], bv[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) av[u] = As[kk][ty * 4 + u];
-#pragma unroll
-        for (int v = 0; v < 4; ++v) bv[v] = Bs[kk][tx * 4 + v];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(av[u], bv[v], acc[u][v]);
-      }
-      __syncthreads();
-    }
-  }
-  float* dst = pool + seg_dst[seg] * TT;
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int v = 0; v < 4; ++v)
-      dst[(int64_t)(r0 + ty * 4 + u) * T + c0 + tx * 4 + v] -= acc[u][v];
+  const int64_t p_end = seg_ptr[sg + 1];
+  for (int64_t p = seg_ptr[sg]; p < p_end; ++p)
+    seg::pair_product<T, OP, ROUND, SCALED>(
+        acc, a_src + pair_a[p] * TT, b_src + pair_b[p] * TT,
+        SCALED ? d + pair_k[p] * T : nullptr, r0, c0, As, Bs);
+  seg::subtract_block<T>(pool + seg_dst[sg] * TT, acc, r0, c0);
 }
 
 template <int T, typename OP, bool ROUND, bool SCALED>
@@ -130,11 +84,10 @@ cudaError_t launch(float* pool, const void* a_src, const void* b_src,
                    const int64_t* pair_a, const int64_t* pair_b,
                    const float* d, const int64_t* pair_k, int64_t nseg,
                    cudaStream_t stream) {
-  constexpr int BM = T < 64 ? T : 64;
-  constexpr int NB = T / BM;
+  constexpr int NB = seg::Shape<T>::NB;
   dim3 grid((unsigned)nseg, NB * NB);
-  pipelined_gemm_scatter_kernel<T, BM, OP, ROUND, SCALED>
-      <<<grid, (BM / 4) * (BM / 4), 0, stream>>>(
+  pipelined_gemm_scatter_kernel<T, OP, ROUND, SCALED>
+      <<<grid, seg::Shape<T>::NT, 0, stream>>>(
           pool, (const OP*)a_src, (const OP*)b_src, seg_ptr, seg_dst, pair_a,
           pair_b, d, pair_k);
   return cudaGetLastError();

@@ -39,6 +39,7 @@ from pastix_tpu_torch.config import Factorization
 from pastix_tpu_torch.numeric.block import (
     block_plan, build_block_plan, gemm_scatter_block,
 )
+from pastix_tpu_torch.numeric.chol_inv import chol_inv, chol_inv_pool
 from pastix_tpu_torch.numeric.kernels import potrf_batch, round_to, tri_inv_batch
 from pastix_tpu_torch.numeric.leftlook import (
     build_ll_schedule, gemm_scatter_ll, ll_plan, regroup_left,
@@ -179,6 +180,41 @@ def e2_schedule(kind, update_dtype, e2=None):
     return mode, compact
 
 
+def fused_diag_gate(kind, fused_diag=None) -> bool:
+    """Whether the LLᵗ DIAG is fused (``build_factorize_fn``): each level
+    with panels factors its diagonal tiles and forms their inverses in
+    one launch of K7 (``chol_inv_pool``), and the dense tail's diagonal
+    blocks go through K8 (``chol_inv``).
+
+    ``fused_diag`` overrides the environment; else the reference's
+    ``PASTIX_FUSED_DIAG`` decides (``pastix_tpu/numeric/factorize.py:
+    875-900``, default off).  Its values 1, ``unroll`` and ``scan`` pick
+    the reference's unrolled levels, its scanned ones or both; the port
+    has no scanned levels, so each of them fuses every level with panels
+    (ROADMAP.md C).  The gate is LLᵗ's only: LDLᵗ and LU ignore the
+    variable and refuse ``fused_diag=True``."""
+    kind = Factorization(kind)
+    if fused_diag is None:
+        return kind == Factorization.LLT and os.environ.get(
+            "PASTIX_FUSED_DIAG", "0") in ("1", "unroll", "scan")
+    if fused_diag and kind != Factorization.LLT:
+        raise ValueError("the fused DIAG (fused_diag=True) is LLᵗ only, as "
+                         "the reference's PASTIX_FUSED_DIAG is")
+    return bool(fused_diag)
+
+
+def _llt_diag(pool: torch.Tensor, lv, fused: bool):
+    """An LLᵗ level's DIAG: its diagonal tiles become L in place; returns
+    the transposed inverses for the panel TRSM (None without panels).
+    Fused, a level with panels is one launch of K7; otherwise, as the
+    reference without its gate, ``cholesky_ex`` and a triangular solve."""
+    if fused and lv.tp.numel():
+        return chol_inv_pool(pool, lv.diag).transpose(1, 2)
+    L = potrf_batch(pool[lv.diag])
+    pool[lv.diag] = L
+    return tri_inv_batch(L).transpose(1, 2) if lv.tp.numel() else None
+
+
 @dataclasses.dataclass
 class _Level:
     cols: torch.Tensor  # the level's block columns
@@ -204,7 +240,8 @@ class _Level:
 
 
 def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
-                       update_dtype=None, dense_tail=None, e2=None):
+                       update_dtype=None, dense_tail=None, e2=None,
+                       fused_diag=None):
     """The program of ``kind`` for this pattern, in place on the pools,
     where the reference donates them to its jitted program:
 
@@ -228,20 +265,23 @@ def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
     trailing update.  ``e2`` picks the E2 schedule (:func:`e2_schedule`;
     None: the reference's environment variables): this description is
     the left-looking one, :func:`_build_right_looking` the others'.
+    ``fused_diag`` fuses the LLᵗ DIAG (:func:`fused_diag_gate`; None: the
+    reference's ``PASTIX_FUSED_DIAG``), on either schedule.
 
     ``fn.levels`` / ``fn.tail`` hold the K1 and K3 plans (right-looking:
     the K3, K5 and K6 plans); ``fn.e2_saved_flops`` counts the
     row-bounded savings against the full-tile count; ``fn.e2`` and
-    ``fn.compact`` name the schedule."""
+    ``fn.compact`` name the schedule, ``fn.fused_diag`` the DIAG."""
     kind = Factorization(kind)
     if kind not in (Factorization.LLT, Factorization.LDLT, Factorization.LU):
         raise NotImplementedError(f"{kind} is not ported (ROADMAP.md slice 3)")
     if dense_tail is not None and kind != Factorization.LLT:
         raise ValueError("the dense tail is LLᵗ only (the reference's rule)")
     mode, compact = e2_schedule(kind, update_dtype, e2)
+    fused = fused_diag_gate(kind, fused_diag)
     if mode != "left":
         return _build_right_looking(layout, device, kind, update_dtype,
-                                    dense_tail, mode, compact)
+                                    dense_tail, mode, compact, fused)
     is_lu, scaled = kind == Factorization.LU, kind == Factorization.LDLT
     T = layout.T
     levels = dense_tail.levels_lo if dense_tail is not None else layout.levels
@@ -298,7 +338,7 @@ def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
         schedule(*tail[:3], mode="bcache") if tail is not None else []
     )
     tail_factor = (
-        _build_tail_factor(dense_tail, T, device, update_dtype)
+        _build_tail_factor(dense_tail, T, device, update_dtype, fused)
         if dense_tail is not None else None
     )
 
@@ -312,10 +352,8 @@ def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
         for lv in plan:
             if lv.ll:
                 gemm_scatter_ll(pool, lv.ll, update_dtype)
-            L = potrf_batch(pool[lv.diag])
-            pool[lv.diag] = L
+            dinv_t = _llt_diag(pool, lv, fused)
             if lv.tp.numel():
-                dinv_t = tri_inv_batch(L).transpose(1, 2)
                 for tp, tcpos, _ in panels(lv):
                     pool[tp] = torch.matmul(pool[tp], dinv_t[tcpos])
             if lv.schur:
@@ -377,11 +415,12 @@ def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
     fn.tail = tail_plan
     fn.e2_saved_flops = e2_saved
     fn.e2, fn.compact = mode, compact
+    fn.fused_diag = fused
     return fn
 
 
 def _build_right_looking(layout, device, kind, update_dtype, dense_tail,
-                         mode, compact):
+                         mode, compact, fused):
     """The reference's round-4 right-looking program (``PASTIX_E2_LL=0``),
     with the signatures of :func:`build_factorize_fn`.  Per level: the
     diagonal tiles, the panel TRSM, then the level's own updates
@@ -464,7 +503,7 @@ def _build_right_looking(layout, device, kind, update_dtype, dense_tail,
                 r.nd = pipe(ga[nd], gb[nd], gd[nd], ext=ext)
         plan.append(r)
     tail_factor = (
-        _build_tail_factor(dense_tail, T, device, update_dtype)
+        _build_tail_factor(dense_tail, T, device, update_dtype, fused)
         if dense_tail is not None else None
     )
     stream = mode == "stream"
@@ -512,10 +551,8 @@ def _build_right_looking(layout, device, kind, update_dtype, dense_tail,
 
     def fact_llt(pool: torch.Tensor) -> torch.Tensor:
         for lv in plan:
-            L = potrf_batch(pool[lv.diag])
-            pool[lv.diag] = L
+            dinv_t = _llt_diag(pool, lv, fused)
             if lv.tp.numel():
-                dinv_t = tri_inv_batch(L).transpose(1, 2)
                 xs = trsm(lv, [(pool, lambda tp, tcpos, tc: torch.matmul(
                     pool[tp], dinv_t[tcpos]))])
                 e2_level(lv, pool, xs)
@@ -561,18 +598,23 @@ def _build_right_looking(layout, device, kind, update_dtype, dense_tail,
     fn.tail = []
     fn.e2_saved_flops = stats["e2_saved"]
     fn.e2, fn.compact = mode, compact
+    fn.fused_diag = fused
     fn.n_block_pairs = stats["n_block_pairs"]
     fn.n_slab_pairs = stats["n_slab_pairs"]
     return fn
 
 
-def _build_tail_factor(dense_tail, T, device, update_dtype):
+def _build_tail_factor(dense_tail, T, device, update_dtype, fused=False):
     """Blocked right-looking Cholesky of the dense trailing block
     (reference ``tail_factor`` / ``tail_factor_blocked``): gather the tail
     tiles into one (m, m) matrix (missing upper tiles stay zero, only the
     lower triangle is read), factor, scatter the lower tiles back.
     Trailing updates round their operands to ``update_dtype``; upper
-    blocks accumulate the symmetric mirror and are never read back."""
+    blocks accumulate the symmetric mirror and are never read back.
+    ``fused``: each diagonal block, symmetrized from its lower triangle
+    (the reference's ``_symf``), goes through K8 (``chol_inv``), which
+    gives L and L⁻¹ in one launch; else ``cholesky_ex`` and a triangular
+    solve."""
     q = dense_tail.q
     m = q * T
     t_p = torch.as_tensor(np.asarray(dense_tail.p_idx, np.int64), device=device)
@@ -585,11 +627,18 @@ def _build_tail_factor(dense_tail, T, device, update_dtype):
         A = dense.view(m, m)
         for j in range(q):
             s0, s1 = j * T, (j + 1) * T
-            Lj = potrf_batch(A[None, s0:s1, s0:s1])
+            if fused:
+                blk = A[s0:s1, s0:s1]
+                Lj, inv = chol_inv(
+                    (torch.tril(blk) + torch.tril(blk, -1).T)[None])
+            else:
+                Lj = potrf_batch(A[None, s0:s1, s0:s1])
             A[s0:s1, s0:s1] = Lj[0]
             if j + 1 == q:
                 break
-            P = A[s1:, s0:s1] @ tri_inv_batch(Lj)[0].T
+            if not fused:
+                inv = tri_inv_batch(Lj)
+            P = A[s1:, s0:s1] @ inv[0].T
             A[s1:, s0:s1] = P
             Pa = round_to(P, update_dtype)
             A[s1:, s1:].addmm_(Pa, Pa.T, alpha=-1.0)

@@ -4,8 +4,9 @@
 Every function takes and returns tensors on the caller's device.  fp32
 matmuls here run in true fp32 (``_device.pin_precision`` turns TF32 off).
 ``ldlt_batch`` and ``getrf_batch`` are the plain twins of kernel K4
-(``numeric/tile_factor.py``): T-step loops of batched tensor operations,
-as the reference's ``lax.fori_loop``s are.
+(``numeric/tile_factor.py``), ``chol_inv_batch`` that of K7 and K8
+(``numeric/chol_inv.py``): T-step loops of batched tensor operations, as
+the reference's ``lax.fori_loop``s are.
 """
 
 from __future__ import annotations
@@ -34,6 +35,31 @@ def tri_inv_batch(L: torch.Tensor, upper: bool = False,
     return torch.linalg.solve_triangular(
         L, eye.expand_as(L), upper=upper, unitriangular=unit
     )
+
+
+def chol_inv_batch(tiles: torch.Tensor):
+    """Batched lower Cholesky and its inverse of (B, T, T) tiles in one
+    T-step loop, reading only the lower triangle of each tile: step j
+    forms column j of L (left-looking) and row j of X = L⁻¹.  Returns (L,
+    X), both lower triangular with zeros above.  A tile that is not
+    positive definite turns NaN, as ``potrf_batch`` makes it.
+
+    The reference's ``chol_inv_batch`` (``pastix_tpu/numeric/kernels.py``,
+    real dtypes), and the plain twin of kernels K7 and K8
+    (``numeric/chol_inv.py``)."""
+    B, T, _ = tiles.shape
+    L = torch.zeros_like(tiles)
+    X = torch.zeros_like(tiles)
+    for j in range(T):
+        Lrow = L[:, j, :j]
+        col = tiles[:, j:, j] - torch.einsum("bik,bk->bi", L[:, j:, :j], Lrow)
+        piv = torch.sqrt(col[:, 0])
+        L[:, j, j] = piv
+        L[:, j + 1:, j] = col[:, 1:] / piv[:, None]
+        s2 = torch.einsum("bk,bkt->bt", Lrow, X[:, :j, :])
+        s2[:, j] -= 1.0
+        X[:, j, :] = -s2 / piv[:, None]
+    return L, X
 
 
 def clamp_pivot(piv: torch.Tensor, eps: float):

@@ -5,10 +5,11 @@ JAX, run them without the repository's conftest (which imports JAX):
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-Tolerances: K1 and K3 max|kernel - twin| <= 1e-4 max|twin| over the
-touched tiles, K2 <= 1e-5 max|twin| (summation order only), K4 <= 1e-5
-max|twin| with equal clamp counts; the end-to-end solves to a residual
-of 1e-10.
+Tolerances: K1, K3, K5, K6, K9 and K10 max|kernel - twin| <= 1e-4
+max|twin| over the touched tiles, K2 <= 1e-5 max|twin| (summation order
+only), K4 <= 1e-5 max|twin| with equal clamp counts, K7 and K8 <= 1e-5
+max|twin| (a right-looking loop against a left-looking one); the
+end-to-end solves to a residual of 1e-10.
 """
 
 import numpy as np
@@ -22,6 +23,8 @@ from pastix_tpu_torch.generators import convection_diffusion_3d, poisson_3d
 from pastix_tpu_torch.sparse import SparseMatrix
 
 import pastix_tpu_torch.numeric.block as BK
+import pastix_tpu_torch.numeric.chol_inv as CI
+import pastix_tpu_torch.numeric.fused as FU
 import pastix_tpu_torch.numeric.leftlook as LL
 import pastix_tpu_torch.numeric.pipelined as PL
 import pastix_tpu_torch.numeric.slab as SB
@@ -413,3 +416,126 @@ def test_k6_matches_twin(cuda, T, upd, kind, monkeypatch):
     assert SB.gemm_scatter_slab.launches == before + len(plan)
     ref = SB.gemm_scatter_slab_ref(f.pool.clone(), plan, upd, **kw)
     _close_dst(got, ref, torch.cat([c.seg_dst for c in plan]))
+
+
+def _spd_tiles(B, T, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    R = rng.standard_normal((B, T, T))
+    S = R @ R.transpose(0, 2, 1) / T + 3 * np.eye(T)
+    return torch.tensor(S, dtype=torch.float32, device=dev)
+
+
+def _close(got, ref, tol):
+    assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("T", [32, 64, 128])
+def test_k7_matches_twin(cuda, T):
+    """K7 in place on a pool: garbage planted above the diagonal of the
+    tiles it factors, a pad sentinel in the index, the other tiles left
+    bit-identical."""
+    npool, tiles = 40, [3, 17, 8, 29, 11]
+    pool = torch.randn(npool, T, T, device=cuda)
+    pool[tiles] = _spd_tiles(len(tiles), T, cuda) + torch.triu(
+        torch.randn(len(tiles), T, T, device=cuda), 1)
+    idx = torch.tensor(tiles + [npool + 5], device=cuda)
+    got, ref = pool.clone(), pool.clone()
+    before = CI.chol_inv_pool.launches
+    dinv = CI.chol_inv_pool(got, idx)
+    assert CI.chol_inv_pool.launches == before + 1
+    dref = CI.chol_inv_pool_ref(ref, idx)
+    _close(got[tiles], ref[tiles], 1e-5)
+    _close(dinv, dref, 1e-5)
+    assert not dinv[-1].any()
+    rest = sorted(set(range(npool)) - set(tiles))
+    assert torch.equal(got[rest], pool[rest])
+
+
+@pytest.mark.parametrize("T", [32, 64, 128])
+def test_k8_matches_twin(cuda, T):
+    S = _spd_tiles(7, T, cuda, seed=1)
+    before = CI.chol_inv.launches
+    L, X = CI.chol_inv(S)
+    assert CI.chol_inv.launches == before + 1
+    Lr, Xr = CI.chol_inv_ref(S)
+    _close(L, Lr, 1e-5)
+    _close(X, Xr, 1e-5)
+
+
+def test_k7_k8_refuse_other_tile_sizes(cuda):
+    with pytest.raises(ValueError, match="T in"):
+        CI.chol_inv_pool(torch.zeros(4, 16, 16, device=cuda),
+                         torch.arange(2, device=cuda))
+    with pytest.raises(ValueError, match="T in"):
+        CI.chol_inv(torch.zeros(2, 16, 16, device=cuda))
+
+
+def _pairs_kw(kind, f, lv):
+    gk = lv.gemm_k if kind == Factorization.LDLT else None
+    kw = {"d": f.d} if kind == Factorization.LDLT else {}
+    if kind == Factorization.LU:
+        kw["src_pool"] = f.pool_u
+    return gk, kw
+
+
+@pytest.mark.parametrize("T", [32, 64, 128])
+@pytest.mark.parametrize("upd", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("kind", [Factorization.LLT, Factorization.LDLT,
+                                  Factorization.LU],
+                         ids=["plain", "d", "src_pool"])
+def test_k9_matches_twin(cuda, T, upd, kind):
+    """K9 on the busiest right-looking level's sorted triples."""
+    s, lv = _rl_level(T, cuda, kind)
+    gk, kw = _pairs_kw(kind, s.factors, lv)
+    plan = FU.fused_plan(*FU.sort_triples(lv.gemm_a, lv.gemm_b, lv.gemm_d,
+                                          gk), device=cuda)
+    pool = s.factors.pool
+    before = FU.gemm_scatter_fused.launches
+    got = FU.gemm_scatter_fused(pool.clone(), plan, upd, **kw)
+    assert FU.gemm_scatter_fused.launches == before + len(plan)
+    ref = FU.gemm_scatter_fused_ref(pool.clone(), plan, upd, **kw)
+    _close_e2(got, ref, plan)
+
+
+@pytest.mark.parametrize("T", [32, 64, 128])
+@pytest.mark.parametrize("upd", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("kind", [Factorization.LLT, Factorization.LDLT,
+                                  Factorization.LU],
+                         ids=["plain", "d", "src_pool"])
+def test_k10_matches_twin(cuda, T, upd, kind):
+    """K10 on the busiest right-looking level's group-1 schedule, in
+    chunks of 7 pairs."""
+    s, lv = _rl_level(T, cuda, kind)
+    gk, kw = _pairs_kw(kind, s.factors, lv)
+    plan = FU.blockspec_plan(PL.build_pipeline_schedule(
+        lv.gemm_a, lv.gemm_b, lv.gemm_d, gk=gk, chunk=7), cuda)
+    pool = s.factors.pool
+    before = FU.gemm_scatter_blockspec.launches
+    got = FU.gemm_scatter_blockspec(pool.clone(), plan, upd, **kw)
+    assert FU.gemm_scatter_blockspec.launches == before + len(plan)
+    ref = FU.gemm_scatter_blockspec_ref(pool.clone(), plan, upd, **kw)
+    _close_e2(got, ref, plan)
+
+
+@pytest.mark.parametrize("e2", ["left", "stream"])
+def test_fused_diag_solve_on_cuda_matches_cpu(cuda, e2, monkeypatch):
+    """PASTIX_FUSED_DIAG=1 on poisson_3d(12), T=32, dense tail on: K7 and
+    K8 launch, no twin runs, and the solution matches the CPU's."""
+    monkeypatch.setenv("PASTIX_FUSED_DIAG", "1")
+    monkeypatch.setenv("PASTIX_E2_LL", "0" if e2 == "stream" else "1")
+    A = poisson_3d(12)
+    b = A.to_scipy() @ np.random.default_rng(4).standard_normal(A.n)
+    cfg = PastixConfig(tile_size=32, update_dtype="bfloat16", dense_tail=True)
+    k7, k8 = CI.chol_inv_pool.launches, CI.chol_inv.launches
+    t7, t8 = CI.chol_inv_pool.twin_launches, CI.chol_inv.twin_launches
+    gpu = Pastix(A, cfg, device=cuda)
+    x = gpu.solve(b)
+    assert gpu._fact_fn.fused_diag and gpu._fact_fn.e2 == e2
+    assert CI.chol_inv_pool.launches > k7 and CI.chol_inv.launches > k8
+    assert (CI.chol_inv_pool.twin_launches, CI.chol_inv.twin_launches) == (
+        t7, t8)
+    xc = Pastix(A, cfg, device="cpu").solve(b)
+    assert gpu.report.residual <= 1e-10
+    assert np.linalg.norm(x - xc) <= 1e-8 * np.linalg.norm(xc)

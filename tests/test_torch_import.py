@@ -28,7 +28,9 @@ SLICE_MODULES = [
     "pastix_tpu_torch.krylov",
     "pastix_tpu_torch.native",
     "pastix_tpu_torch.numeric.block",
+    "pastix_tpu_torch.numeric.chol_inv",
     "pastix_tpu_torch.numeric.factorize",
+    "pastix_tpu_torch.numeric.fused",
     "pastix_tpu_torch.numeric.kernels",
     "pastix_tpu_torch.numeric.leftlook",
     "pastix_tpu_torch.numeric.pipelined",
