@@ -8,7 +8,7 @@ prints the final ``ok`` line:
 
 1. device: a CUDA device is required; prints the card's name and power
    limit (nvidia-smi);
-2. build: compiles the hand-written CUDA kernels K1-K10 from ``csrc/``
+2. build: compiles the hand-written CUDA kernels K1-K13 from ``csrc/``
    (one nvcc per source, in parallel) and the port's native host library
    (g++; prints whether it was built or the Python ordering runs);
 3. kernels: each kernel against its plain PyTorch twin on the same inputs,
@@ -107,6 +107,24 @@ prints the final ``ok`` line:
    phase 3's slice 4 (K3 G=1/2, ``ab_pack`` G=1/2/4, K9, K10) against its
    twin (1e-4 max|ref|), then kernel and twin timed and bound; the
    launches are those of the timed runs, counted from 0;
+14. operand-cache harness (the reference's ``exp_cache.py`` and
+   ``exp_mp.py``) on phase 13's poisson level with its bf16 panel stream:
+   K11 (``gemm_scatter_vcache``, chunk 1536, group 2) and K12
+   (``gemm_scatter_mp`` ``loop`` and ``dot2``, chunk 1536, G = 4 and 8),
+   each against its twin and against ``kernels.gemm_scatter`` with bf16
+   operands (1e-4 max|ref|), beside the reference's K3 baselines (pools
+   at G=2; ``xab`` at chunk 1536 and 6144); kernels and twins timed and
+   bound, the cache's size (CT, MiB) and the mp padding logged; the
+   launches those of the timed runs, counted from 0;
+15. copy probe (the reference's ``exp_dma.py``): every row of its table
+   (S = 1..32 tiles of 64 KB, D = 2..8 in flight; 32 KB and 16 KB
+   sub-tiles, D = 2..16) in 4 KB bulk copies, then its first row on 1,
+   4, 16 and 66 CTAs (on one at D = 8 and 16 too) and in 8, 16 and 32 KB
+   bulk copies (32 KB on one CTA too), on a 786 MB pool, K13's (2, D, T)
+   first- and last-row sums against
+   ``probe_ref`` (1e-5 max|ref|), then K13, its twin and
+   ``index_select`` of the same copies timed, µs per copy, GB/s and the
+   bytes in flight logged against the bytes bound;
 
 then the card's nvidia-smi line, one JSON line of the kernels (each
 variant on its own line of the list, ``launches`` from the path that runs
@@ -128,6 +146,7 @@ TOL_E2 = 1e-4  # max|kernel - twin| / max|twin| for K1 and K3
 TOL_K2 = 1e-5  # the same for the sweeps
 TOL_K4 = 1e-5  # the same for the static-pivot tile factorization
 TOL_K7 = 1e-5  # the same for the fused Cholesky + inverse (K7, K8)
+TOL_K13 = 1e-5  # the copy probe's (2, D, T) sums against the closed form
 TOL_RES = 1e-10  # fp64 ||b - A x|| / ||b|| after refinement
 TOL_S = 1e-4  # max|S - S_ref| / max|S_ref| with fp32 updates
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
@@ -398,7 +417,9 @@ def schur_reference(A, schur):
 
 def counters():
     from pastix_tpu_torch.numeric import block as BK
+    from pastix_tpu_torch.numeric import cache as CA
     from pastix_tpu_torch.numeric import chol_inv as CI
+    from pastix_tpu_torch.numeric import dma_probe as DP
     from pastix_tpu_torch.numeric import fused as FU
     from pastix_tpu_torch.numeric import leftlook as LL
     from pastix_tpu_torch.numeric import pipelined as PL
@@ -410,7 +431,9 @@ def counters():
             "K3": PL.gemm_scatter_pipelined, "K4": TF.tile_factor,
             "K5": BK.gemm_scatter_block, "K6": SB.gemm_scatter_slab,
             "K7": CI.chol_inv_pool, "K8": CI.chol_inv,
-            "K9": FU.gemm_scatter_fused, "K10": FU.gemm_scatter_blockspec}
+            "K9": FU.gemm_scatter_fused, "K10": FU.gemm_scatter_blockspec,
+            "K11": CA.gemm_scatter_vcache, "K12": CA.gemm_scatter_mp,
+            "K13": DP.probe}
 
 
 def reset_counts():
@@ -1400,6 +1423,14 @@ def fused_path(nx, dev, errs, left_ms, stream_ms):
     return out, solver, k7, k8
 
 
+def busiest_stream_level(solver):
+    """The level with the most pairs of a right-looking solver (its dense
+    tail's lower levels when it has one), as phases 13 and 14 take it."""
+    levels = (solver._dense_tail.levels_lo if solver._dense_tail is not None
+              else solver.layout.levels)
+    return max(levels, key=lambda lv: lv.gemm_a.size)
+
+
 def ab_harness(solver, dev, errs):
     """Phase 13: the reference's E2 A/B harness (``exp_pipe.py``) on two
     pair lists, bf16 and fp32 operands, every variant of
@@ -1425,9 +1456,7 @@ def ab_harness(solver, dev, errs):
         np.int32)
     P = torch.from_numpy(rng.standard_normal((npool, T, T)).astype(
         np.float32)).to(dev)
-    levels = (solver._dense_tail.levels_lo if solver._dense_tail is not None
-              else solver.layout.levels)
-    lv = max(levels, key=lambda lv: lv.gemm_a.size)
+    lv = busiest_stream_level(solver)
     inputs = (
         ("exp_pipe", types.SimpleNamespace(pool=P, pool_u=None, d=None),
          (ga, gb, gd)),
@@ -1446,6 +1475,210 @@ def ab_harness(solver, dev, errs):
                     f"{label} {name}", run, ref, steps, pools, upd, T, errs,
                     key)
     del P
+    return out
+
+
+def cache_harness(solver, dev, errs):
+    """Phase 14: the reference's operand-cache harnesses (``exp_cache.py``,
+    ``exp_mp.py``) on phase 13's poisson level, the busiest level of the
+    phase-12 stream solver (its factored pool), with ``xab`` the level's
+    panel tiles of the pool in bf16.  K11 on
+    ``build_pipeline_schedule(chunk=1536, group=2, ext_tiles=panel)`` and
+    K12 ``loop`` and ``dot2`` on ``build_mp_schedule(chunk=1536, G)`` at
+    G = 4 and 8, each against its twin and against ``kernels.gemm_scatter``
+    with bf16 operands (``TOL_E2`` of max|ref|), beside the reference's
+    baselines: K3 on the pools at G=2 (exp_cache.py:232), K3 ``xab`` on
+    the 1536-pair schedule (:235) and at chunk 6144 (exp_mp.py:329).
+    Every case's kernel and twin timed (CUDA events, a warm-up, mean of
+    5), the level's work bound by :func:`e2_work` (the cache counted as
+    the bf16 stream, the pools as fp32); launches counted from 0 over the
+    timed runs.  Returns {label: (ms, twin ms, bound, launches)}."""
+    import torch
+    from pastix_tpu_torch.numeric import cache as CA
+    from pastix_tpu_torch.numeric import kernels as KN
+    from pastix_tpu_torch.numeric import pipelined as PL
+
+    f = solver.factors
+    lv = busiest_stream_level(solver)
+    ga, gb, gd = lv.gemm_a, lv.gemm_b, lv.gemm_d
+    tp = np.asarray(lv.trsm_panel)
+    T, ng = f.pool.shape[1], ga.size
+    xab = f.pool[torch.as_tensor(tp, device=dev)].to(torch.bfloat16)
+    bf16 = torch.bfloat16
+    # what the reference checks against: its XLA gemm_scatter, bf16
+    # operands (additive, so in batches of 4096 pairs)
+    want = f.pool.clone()
+    tens = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)
+    for lo in range(0, ng, 4096):
+        sl = slice(lo, lo + 4096)
+        KN.gemm_scatter(want, tens(ga[sl]), tens(gb[sl]), tens(gd[sl]), bf16)
+    touched = tens(np.unique(gd))
+    scale = float(want[touched].abs().max())
+
+    sched = PL.build_pipeline_schedule(ga, gb, gd, chunk=1536, group=2,
+                                       ext_tiles=tp)
+    vplan = CA.vcache_plan(sched, dev)
+    x1536 = PL.pipeline_plan(sched, dev)
+    log(f"cache harness, poisson level: {ng} pairs, {np.unique(gd).size} "
+        f"dst tiles, {tp.size} panel tiles; vcache: {len(vplan.chunks)} "
+        f"chunks, CT {vplan.ct} (cache {vplan.ct * T * T * 2 / 2**20:.1f} "
+        "MiB against the 50 MB L2)")
+    seg_len = np.unique(gd, return_counts=True)[1]
+    log(f"  segments={seg_len.size} len: mean={seg_len.mean():.1f} "
+        f"med={int(np.median(seg_len))} max={seg_len.max()}")
+    def level_bound(steps):
+        flops, nbytes = e2_work(steps, T)
+        return bound(flops, PEAK_BF16, nbytes)
+
+    # every case runs the level's pairs: bound as K3 on the bf16 stream,
+    # or on the fp32 pools for the pools baseline
+    stream_bd = level_bound(
+        [("pool", ("stream", "l"), ("stream", "l"), x1536, False)])
+    cases = [("K11", CA.gemm_scatter_vcache, CA.gemm_scatter_vcache_ref,
+              (xab, vplan), "K11", stream_bd)]
+    for G in (4, 8):
+        mplan = CA.mp_plan(CA.build_mp_schedule(ga, gb, gd, 1536, G, tp), dev)
+        padded = int((np.ceil(seg_len / G) * G).sum())
+        log(f"  G={G}: padded pairs {padded} (x{padded / ng:.2f}), steps "
+            f"{padded // G} ({ng / (padded // G):.1f} real pairs/step), "
+            f"{len(mplan.chunks)} chunks, CT {mplan.ct} (cache "
+            f"{mplan.ct * T * T * 2 / 2**20:.1f} MiB)")
+        for variant in CA.MP_VARIANTS:
+            cases.append((f"K12 {variant} G={G}", CA.gemm_scatter_mp,
+                          CA.gemm_scatter_mp_ref, (xab, mplan, variant),
+                          "K12", stream_bd))
+    k3, k3_ref = PL.gemm_scatter_pipelined, PL.gemm_scatter_pipelined_ref
+    pools2 = PL.pipeline_plan(PL.build_pipeline_schedule(ga, gb, gd, group=2),
+                              dev)
+    x6144 = PL.pipeline_plan(PL.build_pipeline_schedule(
+        ga, gb, gd, chunk=6144, group=2, ext_tiles=tp), dev)
+    on_stream = (lambda p, plan: k3(p, plan, bf16, xab=xab),
+                 lambda p, plan: k3_ref(p, plan, bf16, xab=xab))
+    cases += [
+        ("K3 G=2 pools", lambda p, plan: k3(p, plan, bf16),
+         lambda p, plan: k3_ref(p, plan, bf16), (pools2,), "K3",
+         level_bound([("pool", "pool", "pool", pools2, False)])),
+        ("K3 xab chunk 1536", *on_stream, (x1536,), "K3", stream_bd),
+        ("K3 xab chunk 6144", *on_stream, (x6144,), "K3", stream_bd),
+    ]
+    out = {}
+    for label, run, run_ref, args, key, bd in cases:
+        got = run(f.pool.clone(), *args)
+        ref = run_ref(f.pool.clone(), *args)
+        torch.cuda.synchronize()
+        e_twin = float((got - ref).abs().max())
+        e_xla = float((got - want).abs().max())
+        ok = max(e_twin, e_xla) <= TOL_E2 * scale
+        log(f"{label}: max|d| twin {e_twin:.3e}, gemm_scatter bf16 "
+            f"{e_xla:.3e}, max|ref| {scale:.3e} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label} disagrees with its twin or with "
+                                 "gemm_scatter")
+        if key in errs:
+            errs[key] = max(errs[key], e_twin)
+        del got, ref
+        work = f.pool.clone()
+        reset_counts()
+        ms = cuda_ms(lambda: run(work, *args))
+        launched = counters()[key].launches
+        plain = cuda_ms(lambda: run_ref(work, *args))
+        log(f"timing {label} ({ng} pairs, bf16): kernel {ms:.3f} ms "
+            f"({ms * 1e6 / ng:.0f} ns/pair), twin {plain:.3f} ms, bound "
+            f"{bd[0]:.4f} ms ({bd[1]}), launches {launched}")
+        out[label] = (ms, plain, bd, launched)
+        del work
+    return out
+
+
+# exp_dma.py's rows, in its order: (rows of a tile, S, D, steps, reps,
+# CTAs (0: one per SM), bytes a bulk copy at most), then its first row on
+# fewer CTAs (the card's bytes in flight cut down to one CTA's) and in
+# larger pieces (the same count in flight, more bytes a copy)
+PROBE_ROWS = (
+    [(128, S, D, st, reps, 0, 4096) for S, D, st, reps in (
+        (1, 2, 1024, 128), (1, 4, 1024, 64), (1, 8, 512, 64),
+        (2, 2, 1024, 64), (4, 2, 1024, 32), (8, 2, 512, 32),
+        (16, 2, 256, 32), (32, 2, 128, 32))]
+    + [(rows, 1, D, 1024, 64, 0, 4096) for rows in (64, 32)
+       for D in (2, 4, 8)]
+    + [(rows, 1, D, 512, 64, 0, 4096) for rows in (64, 32)
+       for D in (12, 16)]
+    + [(128, 1, 2, 1024, 16, c, 4096) for c in (1, 4, 16, 66)]
+    + [(128, 1, D, 1024, 4, 1, 4096) for D in (8, 16)]
+    + [(128, 1, 2, 1024, 128, 0, pc) for pc in (8192, 16384, 32768)]
+    + [(128, 1, 2, 1024, 16, 1, 32768)])
+
+
+def probe_harness(dev, errs):
+    """Phase 15: the reference's copy probe (``exp_dma.py``): a pool of
+    12,000 fp32 T=128 tiles (786 MB) drawn as ``exp_dma.py:26-28``, viewed
+    as (12000, 128, T), (24000, 64, T) and (48000, 32, T); every row of
+    :data:`PROBE_ROWS` with its index table drawn in the reference's order
+    (``integers(0, N - S, (steps, D))``).  K13 against ``probe_ref`` (both
+    rows of every copy, ``TOL_K13`` of max|ref|), then K13 (its index
+    table checked once, before), its twin and one library call timed:
+    ``view.index_select`` of one repeat's S-tile runs, times reps (the
+    same bytes).  The twin is the closed form, which reads two rows a
+    copy, not the copies.  Bound: every copy's bytes over 3.35 TB/s.  The
+    log gives the card's bytes in flight (CTAs x 2 D pieces) and, by
+    Little's law, the latency they imply at the measured rate.  Launches
+    counted from 0 over each row's timed runs.  Returns a list of (rows,
+    S, D, steps, reps, ctas, ms, twin ms, bound, library ms, launches)."""
+    import torch
+    from pastix_tpu_torch.numeric import dma_probe as DP
+
+    npool, T = 12000, 128
+    rng = np.random.default_rng(0)
+    pool = torch.from_numpy(rng.standard_normal((npool, T, T)).astype(
+        np.float32)).to(dev)
+    views = {128: pool, 64: pool.view(npool * 2, 64, T),
+             32: pool.view(npool * 4, 32, T)}
+    out = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for rows, S, D, steps, reps, ctas, pc in PROBE_ROWS:
+        view = views[rows]
+        idx = torch.as_tensor(rng.integers(0, view.shape[0] - S, (
+            steps, D)).astype(np.int32), device=dev)
+        got = DP.probe(view, idx, S, reps, ctas=ctas, piece=pc)
+        ref = DP.probe_ref(view, idx, S, reps)
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        piece = DP.piece_bytes(S, rows, T, pc)
+        label = (f"{rows * T * 4 // 1024} KB tiles, S={S} D={D}"
+                 + (f" on {ctas} CTAs" if ctas else "")
+                 + (f", {piece // 1024} KB pieces" if pc != DP.PIECE
+                    else ""))
+        if not err <= TOL_K13:
+            raise AssertionError(f"K13 {label}: rel max|d| {err:.3e}")
+        errs["K13"] = max(errs["K13"], float((got - ref).abs().max()))
+        flat = (idx.long()[:, :, None] + torch.arange(S, device=dev)).reshape(
+            -1)
+        reset_counts()
+        ms = cuda_ms(lambda: DP.probe(view, idx, S, reps, ctas=ctas,
+                                      piece=pc, check_idx=False))
+        launched = DP.probe.launches
+        plain = cuda_ms(lambda: DP.probe_ref(view, idx, S, reps))
+        lib = cuda_ms(lambda: view.index_select(0, flat)) * reps
+        ncopy = reps * steps * D
+        nbytes = ncopy * S * rows * T * 4.0
+        bd = bound(0.0, PEAK_FP32, nbytes)
+        distinct = np.unique(flat.cpu().numpy()).size * rows * T * 4
+        grid = min(ctas or sms, reps * steps)
+        flight = grid * 2 * D * piece
+        per_piece = ms * 1e3 * grid / (nbytes / piece)  # us a CTA's piece
+        log(f"probe {label} ({S * rows * T * 4 // 1024} KB a copy), "
+            f"{steps} steps x {reps} reps: rel max|d| {err:.1e}; kernel "
+            f"{ms:.3f} ms = {ms * 1e3 / ncopy:.4f} us/copy, "
+            f"{nbytes / ms / 1e6:.1f} GB/s; twin (closed form) "
+            f"{plain:.3f} ms; index_select x reps {lib:.3f} ms "
+            f"({nbytes / lib / 1e6:.1f} GB/s); bound {bd[0]:.3f} ms; "
+            f"in flight {flight / 1e6:.3f} MB ({piece} B pieces, "
+            f"{per_piece:.3f} us a CTA's piece), Little's latency "
+            f"{flight / (nbytes / ms * 1e3) * 1e6:.3f} us; one "
+            f"repeat's distinct bytes {distinct / 1e6:.1f} MB (L2 50 MB); "
+            f"launches {launched}")
+        out.append((rows, S, D, steps, reps, ctas, piece, ms, plain, bd,
+                    lib, launched))
+    del pool, views
     return out
 
 
@@ -1472,7 +1705,7 @@ def main() -> int:
         return 1
 
     from pastix_tpu_torch import _build, native
-    from pastix_tpu_torch._device import card_name_power, pin_precision
+    from pastix_tpu_torch._device import card_name_power
     from pastix_tpu_torch.config import Factorization, PastixConfig
     from pastix_tpu_torch.generators import convection_diffusion_3d, poisson_3d
     from pastix_tpu_torch.numeric import leftlook as LL
@@ -1481,7 +1714,11 @@ def main() -> int:
     # 1. device
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    pin_precision()
+    # true fp32 for the whole process, as the port's phases pin it
+    # (_device.pin_precision): the script also runs kernels and twins
+    # outside those phases
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False
     card = card_name_power().splitlines()[0]
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1494,7 +1731,8 @@ def main() -> int:
         f"(nvcc, {len(_build._SOURCES)} sources in parallel + link: "
         f"{_build.build_seconds:.2f} s)")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("---"):
+        if ("registers" in line or "spill" in line or "entry function"
+                in line or line.startswith("---")):
             log(f"  ptxas: {line.strip()}")
     t0 = time.perf_counter()
     native.get_lib()
@@ -1510,7 +1748,8 @@ def main() -> int:
     lv = busiest_level(ks._fact_fn)
     errs = {k: 0.0 for k in ("K1", "K1d", "K1x", "K2", "K2lu", "K3", "K3d",
                              "K3x", "K4lu", "K4ldlt", "K3xab", "K3compact",
-                             "K3pack", "K5", "K6", "K7", "K8", "K9", "K10")}
+                             "K3pack", "K5", "K6", "K7", "K8", "K9", "K10",
+                             "K11", "K12", "K13")}
     for chunks, where in ((lv.ll, "busiest level"), (ks._fact_fn.tail, "tail")):
         if not chunks:
             raise AssertionError(f"K1: no {where} chunks at this size")
@@ -1603,13 +1842,23 @@ def main() -> int:
     # 13. the E2 A/B harness (exp_pipe.py); the counts are those of each
     # case's timed runs
     ab = ab_harness(fsolver, dev, errs)
-    del fsolver
     if min(v[3] for v in ab.values()) == 0:
         raise AssertionError("the E2 harness did not launch every variant")
 
+    # 14. the operand-cache harness (exp_cache.py, exp_mp.py) on the same
+    # level; 15. the copy probe (exp_dma.py).  The counts are those of
+    # each case's timed runs
+    cache = cache_harness(fsolver, dev, errs)
+    del fsolver
+    probes = probe_harness(dev, errs)
+    if min(v[3] for v in cache.values()) == 0 or min(
+            r[-1] for r in probes) == 0:
+        raise AssertionError("phase 14 or 15 did not launch every kernel")
+
     # no single PyTorch call computes a gather-GEMM-scatter over a pair
     # list or a block-sparse triangular sweep: library_ms is null but for
-    # K4 LU (lu_factor_ex without pivoting)
+    # K4 LU (lu_factor_ex without pivoting) and K13 (index_select of the
+    # same copies)
     def entry(name, src, replaces, launches, err, timed, lib=None):
         ms, plain, bd = timed[:3]
         return {"name": name, "route": "cuda",
@@ -1685,6 +1934,35 @@ def main() -> int:
               ab_row("K3 ab_pack G=1")[3], errs["K3pack"],
               ab_row("K3 ab_pack G=1")),
     ]
+    # the measurement scripts: K11 and K12 at G=4 from phase 14, K13 at
+    # S=1, D=2 from phase 15 (the other cases in the log)
+    rows, S, D, steps, reps, ctas, piece, ms, plain, bd, lib, n = probes[0]
+    kernels += [
+        entry("vcache_gemm_scatter", f"{k3}.cu",
+              "exp_cache.py:181", cache["K11"][3], errs["K11"],
+              cache["K11"]),
+        entry("mp_gemm_scatter[loop]", "cache_gemm_scatter.cu",
+              "exp_mp.py:267", cache["K12 loop G=4"][3], errs["K12"],
+              cache["K12 loop G=4"]),
+        entry("mp_gemm_scatter[dot2]", "cache_gemm_scatter.cu",
+              "exp_mp.py:267", cache["K12 dot2 G=4"][3], errs["K12"],
+              cache["K12 dot2 G=4"]),
+        entry("dma_probe", "dma_probe.cu", "exp_dma.py:76", n, errs["K13"],
+              (ms, plain, bd), lib),
+    ]
+    for label, (ms, plain, bd, n) in cache.items():
+        log(f"cache harness {label}: " + json.dumps(
+            {"ms": ms, "plain_ms": plain, "bound_ms": bd[0],
+             "bound_by": bd[1], "launches": n}))
+    # dma_probe's twin is the closed form (two rows a copy), not copies
+    kernels[-1]["plain"] = "closed form: reads two rows a copy, no copies"
+    for rows, S, D, steps, reps, ctas, piece, ms, plain, bd, lib, n in (
+            probes):
+        log(f"probe rows={rows} S={S} D={D} steps={steps} reps={reps} "
+            f"ctas={ctas or 'one per SM'} piece={piece}: "
+            + json.dumps({"ms": ms, "plain_ms": plain, "bound_ms": bd[0],
+                          "bound_by": bd[1], "library_ms": lib,
+                          "launches": n}))
     for (name, upd, label), (ms, plain, bd, n) in ab.items():
         log(f"harness {name} {upd} {label}: " + json.dumps(
             {"ms": ms, "plain_ms": plain, "bound_ms": bd[0],

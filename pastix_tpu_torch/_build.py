@@ -24,7 +24,8 @@ _CSRC = os.path.join(_HERE, "csrc")
 _OUT = os.path.join(_HERE, "_build")
 _SOURCES = ("ll_gemm_scatter.cu", "sweep.cu", "pipelined_gemm_scatter.cu",
             "tile_factor.cu", "block_gemm_scatter.cu", "slab_gemm_scatter.cu",
-            "chol_inv.cu", "segment_gemm_scatter.cu")
+            "chol_inv.cu", "segment_gemm_scatter.cu",
+            "cache_gemm_scatter.cu", "dma_probe.cu")
 _HEADERS = ("common.cuh", "segment_gemm.cuh")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -126,6 +127,10 @@ def get_lib() -> ctypes.CDLL:
     lib.pastix_chol_inv.restype = I
     lib.pastix_segment_gemm_scatter.argtypes = [P] * 9 + [L, I, I, P]
     lib.pastix_segment_gemm_scatter.restype = I
+    lib.pastix_mp_gemm_scatter.argtypes = [P] * 6 + [L, I, L, I, I, P]
+    lib.pastix_mp_gemm_scatter.restype = I
+    lib.pastix_dma_probe.argtypes = [P] * 3 + [I] * 5 + [L, I, I, P]
+    lib.pastix_dma_probe.restype = I
     lib.pastix_cuda_error.argtypes = [I]
     lib.pastix_cuda_error.restype = ctypes.c_char_p
     _LIB = lib

@@ -5,7 +5,9 @@
 // (d: LDL^T) and the cross-pool (src_pool: LU) variants, and the operand
 // arrays of its compact forms (xab: the panel TRSM's bf16 stream;
 // compact: per-chunk gathers of the distinct operand tiles; ab_pack:
-// stacked (a, b) pairs).
+// stacked (a, b) pairs).  numeric/cache.py also launches it for K11
+// (exp_cache.py's gemm_scatter_vcache): a and b read by slot from one
+// bf16 array, the chunk's operand cache.
 // Semantics: for every dst segment of a chunk (pairs sorted by dst on the
 // host), subtract the sum of its pairs' op(a) . op(b)^T over the full
 // T x T dst tile, where op rounds an fp32 tile to bf16 when the update

@@ -2,7 +2,8 @@
 ``pastix_tpu/numeric/kernels.py``, real dtypes only).
 
 Every function takes and returns tensors on the caller's device.  fp32
-matmuls here run in true fp32 (``_device.pin_precision`` turns TF32 off).
+matmuls here run in true fp32 inside the ``Pastix`` phases
+(``_device.pin_precision`` turns TF32 off around them).
 ``ldlt_batch`` and ``getrf_batch`` are the plain twins of kernel K4
 (``numeric/tile_factor.py``), ``chol_inv_batch`` that of K7 and K8
 (``numeric/chol_inv.py``): T-step loops of batched tensor operations, as

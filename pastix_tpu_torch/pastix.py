@@ -14,6 +14,7 @@ no silent fallbacks, and an error on the device propagates.
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Optional
@@ -65,6 +66,17 @@ def _not_ported(what: str, slice_: str):
     )
 
 
+def _pinned(method):
+    """Run a phase that does fp32 matmuls under :func:`pin_precision`."""
+
+    @functools.wraps(method)
+    def run(self, *args, **kw):
+        with pin_precision():
+            return method(self, *args, **kw)
+
+    return run
+
+
 def _check_config(cfg: PastixConfig) -> None:
     if not isinstance(cfg, PastixConfig):
         raise TypeError(
@@ -89,6 +101,22 @@ def _check_config(cfg: PastixConfig) -> None:
         raise _not_ported("mesh_shape (multi-device)", "slice 5")
     if cfg.refinement not in (RefinementMethod.SIMPLE, RefinementMethod.NONE):
         raise _not_ported(f"{cfg.refinement.name} refinement", "slice 3")
+    # packed_update=None (auto) is off: the port has no packed E2 path
+    # (the reference's auto turns it on for every backend but the TPU)
+    if cfg.packed_update:
+        raise _not_ported("packed_update=True (the packed E2 path)", "A7")
+    if cfg.trace:
+        raise _not_ported("trace=True (phase spans, dump_trace)", "A10")
+    # one solve path (the inverse diagonal tiles, K2) and one refinement
+    # loop (on the device, fp64 residual)
+    if not cfg.fast_solve:
+        raise _not_ported("fast_solve=False (per-level triangular solves)",
+                          "A2")
+    if not cfg.device_refine:
+        raise _not_ported("device_refine=False (the host refinement loop)",
+                          "A2")
+    if cfg.residual_dtype != "float64":
+        raise _not_ported(f"residual_dtype={cfg.residual_dtype!r}", "A2")
 
 
 class Pastix:
@@ -100,7 +128,6 @@ class Pastix:
         self.config = config or PastixConfig()
         _check_config(self.config)
         self.device = resolve_device(device)
-        pin_precision()
         self.report = SolveReport()
         self.A: Optional[SparseMatrix] = None
         self.order_: Optional[Order] = None
@@ -391,13 +418,23 @@ class Pastix:
         is_lu = kind == Factorization.LU
         use_tail = (cfg.dense_tail and self._schur_first_bcol is None
                     and kind == Factorization.LLT)
-        self.layout = build_layout(
-            self._pat_perm_ext,
-            self._tile_size,
-            for_lu=is_lu,
-            schur_first_bcol=self._schur_first_bcol,
-            densify_tail_frac=cfg.dense_tail_fill if use_tail else 0.0,
-        )
+        layout_path = os.path.join(cfg.io_dir, "layoutname")
+        if cfg.io_strategy == IOStrategy.LOAD and os.path.exists(
+            layout_path + ".npz"
+        ):
+            # the third analysis artifact, as the reference keeps it
+            self.layout = SolverLayout.load(layout_path)
+            self.layout.check()
+        else:
+            self.layout = build_layout(
+                self._pat_perm_ext,
+                self._tile_size,
+                for_lu=is_lu,
+                schur_first_bcol=self._schur_first_bcol,
+                densify_tail_frac=cfg.dense_tail_fill if use_tail else 0.0,
+            )
+            if cfg.io_strategy == IOStrategy.SAVE:
+                self.layout.save(layout_path)
         lay = self.layout
         T = lay.T
         pool_bytes = lay.npool * T * T * 4 * (2 if is_lu else 1)
@@ -468,6 +505,7 @@ class Pastix:
     # phase 4: numeric factorization
     # ------------------------------------------------------------------
 
+    @_pinned
     def factorize(self) -> Factors:
         """Coefinit, the factorization of the configured kind and the
         inverse diagonal tiles, on the device; returns when the device has
@@ -526,6 +564,7 @@ class Pastix:
         out[self.order_.peritab] = xp
         return out[:, 0] if one_d else out
 
+    @_pinned
     def solve(self, b: np.ndarray, refine: Optional[bool] = None) -> np.ndarray:
         """Solve A x = b (original ordering).  With refinement (the
         default) the device Richardson loop runs to ``refinement_eps``;
@@ -613,6 +652,7 @@ class Pastix:
                 )
         return S[:ns, :ns]
 
+    @_pinned
     def solve_with_schur(self, b: np.ndarray, schur_solve=None) -> np.ndarray:
         """Full solve when Schur mode is on: the forward sweep on the
         device, the dense Schur system on the host, the backward sweep on

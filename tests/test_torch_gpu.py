@@ -5,11 +5,12 @@ JAX, run them without the repository's conftest (which imports JAX):
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-Tolerances: K1, K3, K5, K6, K9 and K10 max|kernel - twin| <= 1e-4
-max|twin| over the touched tiles, K2 <= 1e-5 max|twin| (summation order
+Tolerances: K1, K3, K5, K6, K9, K10, K11 and K12 max|kernel - twin| <=
+1e-4 max|twin| over the touched tiles, K2 <= 1e-5 max|twin| (summation order
 only), K4 <= 1e-5 max|twin| with equal clamp counts, K7 and K8 <= 1e-5
-max|twin| (a right-looking loop against a left-looking one); the
-end-to-end solves to a residual of 1e-10.
+max|twin| (a right-looking loop against a left-looking one), K13 <=
+1e-5 max|twin| (exact copies, summed in another order); the end-to-end
+solves to a residual of 1e-10.
 """
 
 import numpy as np
@@ -23,7 +24,9 @@ from pastix_tpu_torch.generators import convection_diffusion_3d, poisson_3d
 from pastix_tpu_torch.sparse import SparseMatrix
 
 import pastix_tpu_torch.numeric.block as BK
+import pastix_tpu_torch.numeric.cache as CA
 import pastix_tpu_torch.numeric.chol_inv as CI
+import pastix_tpu_torch.numeric.dma_probe as DP
 import pastix_tpu_torch.numeric.fused as FU
 import pastix_tpu_torch.numeric.leftlook as LL
 import pastix_tpu_torch.numeric.pipelined as PL
@@ -539,3 +542,65 @@ def test_fused_diag_solve_on_cuda_matches_cpu(cuda, e2, monkeypatch):
     xc = Pastix(A, cfg, device="cpu").solve(b)
     assert gpu.report.residual <= 1e-10
     assert np.linalg.norm(x - xc) <= 1e-8 * np.linalg.norm(xc)
+
+
+def _cache_level(T, dev):
+    """The busiest right-looking level's pairs, its bf16 panel stream and
+    the factored pool."""
+    s, lv = _rl_level(T, dev)
+    tp = np.asarray(lv.trsm_panel)
+    xab = s.factors.pool[torch.as_tensor(tp, device=dev)].to(torch.bfloat16)
+    return s.factors.pool, xab, lv, tp
+
+
+@pytest.mark.parametrize("T", [32, 64, 128])
+@pytest.mark.parametrize("chunk", [7, 1536])
+def test_k11_matches_twin(cuda, T, chunk):
+    """K11 on the level's stream schedule, group 2, in chunks that cut
+    dst segments and in one."""
+    pool, xab, lv, tp = _cache_level(T, cuda)
+    plan = CA.vcache_plan(PL.build_pipeline_schedule(
+        lv.gemm_a, lv.gemm_b, lv.gemm_d, chunk=chunk, group=2,
+        ext_tiles=tp), cuda)
+    before = CA.gemm_scatter_vcache.launches
+    got = CA.gemm_scatter_vcache(pool.clone(), xab, plan)
+    assert CA.gemm_scatter_vcache.launches == before + len(plan.chunks)
+    ref = CA.gemm_scatter_vcache_ref(pool.clone(), xab, plan)
+    _close_e2(got, ref, plan.chunks)
+
+
+@pytest.mark.parametrize("T", [32, 64, 128])
+@pytest.mark.parametrize("G", [2, 4, 8])
+@pytest.mark.parametrize("variant", ["loop", "dot2"])
+@pytest.mark.parametrize("chunk", [7, 1536])
+def test_k12_matches_twin(cuda, T, G, variant, chunk):
+    """K12 on the level's mp schedule."""
+    pool, xab, lv, tp = _cache_level(T, cuda)
+    plan = CA.mp_plan(CA.build_mp_schedule(
+        lv.gemm_a, lv.gemm_b, lv.gemm_d, chunk, G, tp), cuda)
+    before = CA.gemm_scatter_mp.launches
+    got = CA.gemm_scatter_mp(pool.clone(), xab, plan, variant)
+    assert CA.gemm_scatter_mp.launches == before + len(plan.chunks)
+    ref = CA.gemm_scatter_mp_ref(pool.clone(), xab, plan, variant)
+    _close_e2(got, ref, plan.chunks)
+
+
+@pytest.mark.parametrize("rows", [128, 64, 32])
+@pytest.mark.parametrize("S,D,ctas,piece", [
+    (1, 1, 0, 4096), (1, 2, 0, 4096), (2, 3, 5, 4096), (4, 8, 0, 4096),
+    (32, 2, 0, 4096), (1, 24, 1, 4096), (1, 2, 0, 32768), (3, 2, 7, 16384)])
+def test_k13_matches_twin(cuda, rows, S, D, ctas, piece):
+    """K13 on 300 tiles of (rows, 128), 37 steps, 3 repeats, one CTA per
+    SM or ``ctas``, bulk copies of at most ``piece`` bytes: every row of
+    the (2, D, T) accumulator."""
+    rng = np.random.default_rng(rows + S)
+    view = torch.as_tensor(rng.standard_normal((300, rows, 128)).astype(
+        np.float32), device=cuda)
+    idx = torch.as_tensor(rng.integers(0, 300 - S, (37, D)).astype(
+        np.int32), device=cuda)
+    before = DP.probe.launches
+    got = DP.probe(view, idx, S, 3, ctas=ctas, piece=piece)
+    assert DP.probe.launches == before + 1
+    ref = DP.probe_ref(view, idx, S, 3)
+    assert got.shape == (2, D, 128)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())

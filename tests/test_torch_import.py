@@ -28,7 +28,9 @@ SLICE_MODULES = [
     "pastix_tpu_torch.krylov",
     "pastix_tpu_torch.native",
     "pastix_tpu_torch.numeric.block",
+    "pastix_tpu_torch.numeric.cache",
     "pastix_tpu_torch.numeric.chol_inv",
+    "pastix_tpu_torch.numeric.dma_probe",
     "pastix_tpu_torch.numeric.factorize",
     "pastix_tpu_torch.numeric.fused",
     "pastix_tpu_torch.numeric.kernels",

@@ -115,6 +115,110 @@ def test_unported_options_raise(cfg):
         Pastix(poisson_3d(4), PastixConfig(**cfg), device="cpu")
 
 
+@pytest.mark.parametrize("field,value,item", [
+    ("packed_update", True, "A7"), ("packed_update", None, None),
+    ("packed_update", False, None), ("trace", True, "A10"),
+    ("fast_solve", False, "A2"), ("device_refine", False, "A2"),
+    ("residual_dtype", "float32", "A2"),
+])
+def test_config_fields_raise_or_are_taken(field, value, item):
+    """Every config field the port does not act on raises naming its
+    ROADMAP item; packed_update=None (auto) is off, as False."""
+    cfg = PastixConfig(**{field: value})
+    if item is None:
+        assert Pastix(poisson_3d(4), cfg, device="cpu").config is cfg
+        return
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}\\)"):
+        Pastix(poisson_3d(4), cfg, device="cpu")
+
+
+def _layout_arrays(lay):
+    """Every array of a layout, by name, as SolverLayout.save writes
+    them."""
+    out = {k: getattr(lay, k) for k in ("keys", "blk_row", "blk_col",
+                                         "level_of_col", "scat_pool_flat")}
+    for i, lv in enumerate(lay.levels):
+        for k, v in vars(lv).items():
+            out[f"lv{i}_{k}"] = v
+    return out
+
+
+@pytest.mark.parametrize("saver", ["port", "reference"])
+def test_layout_round_trips_with_reference(tmp_path, monkeypatch, saver):
+    """IOStrategy.SAVE writes layoutname.npz beside the order and the
+    symbol; IOStrategy.LOAD in the other package reads it, and builds
+    no layout of its own."""
+    import pastix_tpu.pastix as JP
+    import pastix_tpu_torch.pastix as TP
+    from pastix_tpu.config import IOStrategy as JIO
+    from pastix_tpu_torch.config import IOStrategy
+
+    def cfg(cls, io):
+        return cls(tile_size=16, io_strategy=io, io_dir=str(tmp_path))
+
+    A = poisson_3d(6)
+    port = lambda io: Pastix(A, cfg(PastixConfig, io), device="cpu")
+    ref = lambda io: JPastix(j_poisson_3d(6), cfg(JPastixConfig, io))
+    save, load = ((port(IOStrategy.SAVE), ref(JIO.LOAD)) if saver == "port"
+                  else (ref(JIO.SAVE), port(IOStrategy.LOAD)))
+    for s in (save, load):
+        if s is load:
+            monkeypatch.setattr(JP if saver == "port" else TP,
+                                "build_layout", None)
+        s.order()
+        s.symbfact()
+        s.analyze()
+    assert (tmp_path / "layoutname.npz").exists()
+    got, want = _layout_arrays(load.layout), _layout_arrays(save.layout)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_solve_after_layout_load_gives_same_pool(tmp_path, monkeypatch):
+    import pastix_tpu_torch.pastix as TP
+    from pastix_tpu_torch.config import IOStrategy
+
+    A = poisson_3d(6)
+    b = A.to_scipy() @ np.ones(A.n)
+    runs = []
+    for io in (IOStrategy.SAVE, IOStrategy.LOAD):
+        if io == IOStrategy.LOAD:
+            monkeypatch.setattr(TP, "build_layout", None)
+        s = Pastix(A, PastixConfig(tile_size=16, io_strategy=io,
+                                   io_dir=str(tmp_path)), device="cpu")
+        x = s.solve(b)
+        runs.append((s.factors.pool.clone(), x))
+    assert torch.equal(runs[0][0], runs[1][0])
+    np.testing.assert_array_equal(runs[0][1], runs[1][1])
+
+
+def test_solve_leaves_callers_tf32_switches():
+    """The port pins true fp32 around its own phases only
+    (_device.pin_precision) and restores the caller's switches."""
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cudnn.allow_tf32)
+    seen = []
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        from pastix_tpu_torch import _device
+
+        with _device.pin_precision():
+            seen.append((torch.backends.cuda.matmul.allow_tf32,
+                         torch.backends.cudnn.allow_tf32))
+        A = poisson_3d(4)
+        x = pastix_tpu_torch.spsolve(A, A.to_scipy() @ np.ones(A.n),
+                                     device="cpu", tile_size=16)
+        assert np.abs(x - 1).max() < 1e-9
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+    assert seen == [(False, False)]
+
+
 def test_schur_unknowns_raise():
     """Schur unknowns under LDLᴴ name slice 3; under LLᵗ, LDLᵗ and LU
     they are taken."""

@@ -1,7 +1,8 @@
 """K2's plain twin (``sweep_fwd`` + ``sweep_bwd`` on the CPU) against the
 reference's Pallas ``run_sweep`` in interpret mode, on the same factored
 pool, inverse diagonals and RHS (numpy, from a seed), R in {1, 3}.
-poisson_3d(8), T=32: interpret mode costs about 10 ms per op on a CPU.
+poisson_3d(8), T=32: interpret mode costs about 10 ms per op on a CPU,
+so the reference sweeps both cases' RHS in one run (R = 4).
 
 Tolerance: rtol=1e-5 against max|ref|; both run fp32 arithmetic and
 differ in summation order only.  The LU sweeps (forward on the L pool
@@ -40,20 +41,34 @@ def factored():
     return s
 
 
-@pytest.mark.parametrize("nrhs", [1, 3])
-def test_twin_matches_pallas_sweeps(factored, nrhs):
+@pytest.fixture(scope="module")
+def reference_sweeps(factored):
+    """{R: (RHS, the reference's forward + backward sweeps of it)} for R
+    in {1, 3}.  Interpret mode costs per padded op, not per column, and
+    the sweeps act on each column alone: the reference runs once on both
+    cases' columns side by side (R = 4), and each case reads its own."""
     lay, f = factored.layout, factored.factors
-    rng = np.random.default_rng(nrhs)
-    y2 = rng.standard_normal((lay.nbc * nrhs, lay.T)).astype(np.float32)
-    pool, dinv = f.pool.numpy(), f.dinv.numpy()
+    ys = {R: np.random.default_rng(R).standard_normal(
+        (lay.nbc * R, lay.T)).astype(np.float32) for R in (1, 3)}
+    both = np.concatenate([ys[1].reshape(lay.nbc, 1, lay.T),
+                           ys[3].reshape(lay.nbc, 3, lay.T)], axis=1)
+    pool, dinv = jnp.asarray(f.pool.numpy()), jnp.asarray(f.dinv.numpy())
     # interpret mode costs per padded op: one chunk that just fits
     nops = sum(len(lv.cols) + len(lv.trsm_panel) for lv in lay.levels)
     sched = JSW.build_sweep_schedule(lay, chunk_max=-(-nops // 4) * 4)
-    ref = JSW.sweep_fwd(jnp.asarray(pool), jnp.asarray(dinv),
-                        jnp.asarray(y2), sched, interpret=True)
-    ref = np.asarray(JSW.sweep_bwd(jnp.asarray(pool), jnp.asarray(dinv),
-                                   ref, sched, interpret=True))
-    plan = SW.sweep_plan(lay, "cpu")
+    ref = JSW.sweep_fwd(pool, dinv, jnp.asarray(both.reshape(-1, lay.T)),
+                        sched, interpret=True)
+    ref = np.asarray(JSW.sweep_bwd(pool, dinv, ref, sched, interpret=True))
+    ref = ref.reshape(lay.nbc, 4, lay.T)
+    return {1: (ys[1], ref[:, :1].reshape(-1, lay.T)),
+            3: (ys[3], ref[:, 1:].reshape(-1, lay.T))}
+
+
+@pytest.mark.parametrize("nrhs", [1, 3])
+def test_twin_matches_pallas_sweeps(factored, reference_sweeps, nrhs):
+    f = factored.factors
+    y2, ref = reference_sweeps[nrhs]
+    plan = SW.sweep_plan(factored.layout, "cpu")
     got = torch.from_numpy(y2.copy())
     before = SW.run_sweep.twin_launches
     SW.sweep_fwd(f.pool, f.dinv, got, plan)
