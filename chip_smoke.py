@@ -9,11 +9,14 @@ prints the final ``ok`` line:
 1. device: a CUDA device is required; prints the card's name and power
    limit (nvidia-smi);
 2. build: compiles the hand-written CUDA kernels K1-K13 from ``csrc/``
-   (one nvcc per source, in parallel) and the port's native host library
-   (g++; prints whether it was built or the Python ordering runs);
+   (one nvcc per source, in parallel; ptxas registers and spills, and
+   K1's HMMA count from ``cuobjdump -sass`` where the toolkit has it) and
+   the port's native host library (g++; prints whether it was built or
+   the Python ordering runs);
 3. kernels: each kernel against its plain PyTorch twin on the same inputs,
    max|d| <= 1e-4 max|ref| for K1 and K3, 1e-5 for K2 (summation order
-   only) and K4 (plus equal clamp counts): on the poisson_3d(24) T=128
+   only) and K4 (plus equal clamp counts); K1 and K2 also run twice and
+   must repeat bit for bit, and K2 must launch once a sweep direction: on the poisson_3d(24) T=128
    layout, K1 (left-looking E2) on the busiest level's chunks and the
    dense-tail pre-pass, bf16 and fp32 updates, K2 (sweeps) forward +
    backward at R = 1 and R = 3; on the poisson_3d(24) T=128 Schur layout
@@ -46,17 +49,21 @@ prints the final ``ok`` line:
 4. main path: ``Pastix(poisson_3d(--nx), T=128, bf16 updates)`` through
    order, symbfact, analyze, factorize (twice, the second timed) and a
    refined solve of b = A.1 to a fp64 residual <= 1e-10; the launch counts
-   of K1 and K2 must rise and the twins' stay 0;
+   of K1 and K2 must rise and the twins' stay 0, and K2 may launch at
+   most twice a fwd+bwd sweep pair (the first solve and one a refinement
+   step; so on every path that calls ``solve``);
 5. main-path shapes: K1 on the main path's busiest level and tail
    pre-pass and K2 on its sweeps, each against its twin as in 3, then
-   each kernel and its twin timed (CUDA events);
+   each kernel and its twin timed (CUDA events), K1's per-chunk bf16
+   operand gather timed alone, and K2 on a chain of 256 dependent
+   columns (its latency an item);
 6. Schur path: ``Pastix(poisson_3d(--schur-nx), T=128, bf16 updates)``
    with the plane z = nx-1 (its last nx^2 unknowns) as Schur unknowns:
    order, symbfact, analyze, factorize twice (the second timed),
    ``get_schur`` (shape, finite, symmetric), ``solve_with_schur(A.1)`` to
    a fp64 residual <= 1e-10; K1, K2 and K3 must launch and no twin may
-   run; then K3 against its twin on the path's busiest residue level, and
-   both timed;
+   run; then K1 on the busiest level and K2 against their twins, and K3
+   against its twin on the path's busiest residue level, and timed;
 7. LU path: ``Pastix(convection_diffusion_3d(--lu-nx), T=128, bf16
    updates, LU)`` (n = 343,000 at the default 70: the reference's
    convdiff rung) as in 4; K1, K2 and K4 must launch, no twin; then K1
@@ -67,13 +74,14 @@ prints the final ``ok`` line:
    Laplacian (a shift-and-invert matrix, one negative eigenvalue), as in
    7; with no clamped pivot exactly one pivot of d is negative
    (Sylvester); K1 scaled (against its twin, and timed, in fp32, the
-   path's dtype) and K4 LDLᵗ; then, not checked, what bf16 updates leave
+   path's dtype), K2 against its twin, and K4 LDLᵗ; then, not checked, what bf16 updates leave
    on this matrix (their error is not contracted by the refinement at
    nx=64);
 9. LU Schur path: ``convection_diffusion_3d(--schur-nx)`` with the plane
    z = nx-1 as Schur unknowns: ``get_schur`` (shape, finite),
    ``solve_with_schur(A.1)`` to <= 1e-10, K3 launched in its cross-pool
-   variant; K3 ``src_pool`` against its twin and timed (bf16);
+   variant; K1 and K2 (LU) against their twins as in 6; K3 ``src_pool``
+   against its twin and timed (bf16);
 10. LDLᵗ Schur path: the shift-invert poisson_3d(--schur-nx) with its
    plane z = nx-1, fp32 updates: as 9 (S symmetric), K3 launched in its
    scaled variant; K3 ``d`` against its twin and timed in fp32;
@@ -89,7 +97,7 @@ prints the final ``ok`` line:
    launched, K1 not, no twin; where the reference's cost gate keeps no
    block or slab pair of the matrix the gate is opened, and the log says
    so; then that kernel against its twin at the path's busiest level,
-   timed and bound;
+   timed and bound, and per matrix K2 against its twin;
 12. fused-diagonal LLᵗ path (the reference's ``PASTIX_FUSED_DIAG=1``):
    ``poisson_3d(--nx)``, dense tail on, bf16 updates, left-looking and
    right-looking stream, each as in 4 (factorize twice, the second
@@ -99,7 +107,7 @@ prints the final ``ok`` line:
    and 11; then K7 on the left path's level with the most diagonal tiles
    against its twin and against ``cholesky_ex`` + ``solve_triangular``
    (two library calls), and K8 on one tile (the dense tail's call), both
-   timed and bound;
+   timed and bound; K1 (left) and K2 (both) against their twins;
 13. E2 A/B harness (the reference's ``exp_pipe.py``): on exp_pipe's
    default triples (ng=8192, a pool of 12000 T=128 tiles, segments of
    about 3 pairs) and on the busiest right-looking level of phase 12's
@@ -223,13 +231,18 @@ def plan_dsts(c):
     return c.seg_dst
 
 
-def check_e2(name, run, run_ref, pool, chunks, update_dtype, label, **kw):
+def check_e2(name, run, run_ref, pool, chunks, update_dtype, label,
+             repeat=False, **kw):
     """An E2 kernel (K1, K3, K5 or K6) against its twin on copies of
     ``pool`` (``kw``: the ``d`` or ``src_pool`` variant, K3's operand
-    arrays); returns max|d|."""
+    arrays); ``repeat``: a second run must be bit-identical.  Returns
+    max|d|."""
     import torch
 
     got = run(pool.clone(), chunks, update_dtype, **kw)
+    if repeat and not torch.equal(got, run(pool.clone(), chunks,
+                                           update_dtype, **kw)):
+        raise AssertionError(f"{name} {label}: two runs differ")
     ref = run_ref(pool.clone(), chunks, update_dtype, **kw)
     torch.cuda.synchronize()
     touched = torch.cat([plan_dsts(c) for c in chunks]).unique()
@@ -248,7 +261,7 @@ def check_k1(pool, chunks, update_dtype, label, **kw):
     from pastix_tpu_torch.numeric import leftlook as LL
 
     return check_e2("K1", LL.gemm_scatter_ll, LL.gemm_scatter_ll_ref, pool,
-                    chunks, update_dtype, label, **kw)
+                    chunks, update_dtype, label, repeat=True, **kw)
 
 
 def check_k3(pool, chunks, update_dtype, label, **kw):
@@ -269,7 +282,8 @@ def sweep_pair(solver):
 
 
 def check_k2(solver, R, seed):
-    """K2 forward + backward against its twin; returns max|d|."""
+    """K2 forward + backward against its twin, one launch a direction and
+    a second run bit-identical; returns max|d|."""
     import torch
     from pastix_tpu_torch.numeric import sweep_kernels as SW
 
@@ -277,11 +291,16 @@ def check_k2(solver, R, seed):
     plan = solver._solve_fn.plan
     g = torch.Generator(device=f.pool.device).manual_seed(seed)
     y2 = torch.randn(lay.nbc * R, lay.T, generator=g, device=f.pool.device)
-    got, ref = y2.clone(), y2.clone()
+    got, again, ref = y2.clone(), y2.clone(), y2.clone()
+    n0 = SW.run_sweep.launches
     for key, (pool, dinv, lu) in zip(("fwd", "bwd"), sweep_pair(solver)):
         SW.run_sweep(pool, dinv, got, plan, key, lu)
+        SW.run_sweep(pool, dinv, again, plan, key, lu)
         SW.run_sweep_ref(pool, dinv, ref, plan, key, lu)
     torch.cuda.synchronize()
+    if SW.run_sweep.launches != n0 + 4 or not torch.equal(got, again):
+        raise AssertionError("K2: not one launch a direction, or two runs "
+                             "differ")
     scale = float(ref.abs().max())
     err = float((got - ref).abs().max())
     ok = err <= TOL_K2 * scale
@@ -319,10 +338,84 @@ def k2_timed(solver):
     bd = bound(nops * 2.0 * lay.T ** 2, PEAK_FP32,
                npools * (tiles.unique().numel() + ncols) * lay.T ** 2 * 4
                + 2 * lay.nbc * lay.T * 4)
+    items = {k: plan["items"][k].nitems for k in ("fwd", "bwd")}
+    for key in ("fwd", "bwd"):
+        n, slots, most, ops = k2_critical_chain(plan["items"][key], lay.nbc)
+        log(f"  K2 {key}: longest dependent chain {n} items; its diag "
+            f"items sum {slots:.1f} slots (at most {most}), its update "
+            f"items hold {ops:.2f} ops")
     log(f"timing K2 {'LU ' if npools == 2 else ''}fwd+bwd R=1 "
-        f"({len(plan['fwd']) + len(plan['bwd'])} phases): kernel {ms:.3f} "
-        f"ms, twin {plain:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
+        f"({len(plan['fwd']) + len(plan['bwd'])} phases, items {items}): "
+        f"kernel {ms:.3f} ms, twin {plain:.3f} ms, bound {bd[0]:.3f} ms "
+        f"({bd[1]})")
     return ms, plain, bd
+
+
+def k2_critical_chain(items, nbc):
+    """The longest chain of dependent work items of one K2 direction,
+    from its host tables: (items on it, the mean and largest slot count
+    of its diag items, the mean op count of its update items)."""
+    it = items.item.cpu().numpy()
+    slots = items.slot_list.cpu().numpy()
+    src, wait = items.op_src.cpu().numpy(), items.op_wait.cpu().numpy()
+    kind, col, lo, hi = it[:, 0], it[:, 1], it[:, 2], it[:, 3]
+    red = np.flatnonzero(kind != 1)
+    owner = np.full(nbc, -1)
+    owner[col[red]] = red
+    upd = np.flatnonzero(kind == 1)
+    depth, parent = np.zeros(len(it), np.int64), np.full(len(it), -1)
+    for t in range(len(it)):
+        if kind[t] == 1:
+            deps = owner[src[lo[t]:hi[t]][wait[lo[t]:hi[t]] != 0]]
+        else:
+            deps = upd[slots[lo[t]:hi[t]]]
+        if deps.size:
+            j = deps[np.argmax(depth[deps])]
+            depth[t], parent[t] = depth[j] + 1, j
+    chain, t = [], int(np.argmax(depth))
+    while t >= 0:
+        chain.append(t)
+        t = parent[t]
+    n = (hi - lo)[chain]
+    on_upd = kind[chain] == 1
+    return (len(chain), float(n[~on_upd].mean()), int(n[~on_upd].max()),
+            float(n[on_upd].mean()))
+
+
+def k2_chain_timed(dev, n=256, T=128):
+    """K2 on a chain of ``n`` columns, each column's one update feeding
+    the next column's diagonal: every item waits on the one before, so
+    the time over the 2 n - 1 items is K2's latency an item on a
+    dependent path (the sweeps' critical path is such a chain, about 185
+    items a direction at Poisson 64^3).  Checked against the twin."""
+    import torch
+    from pastix_tpu_torch.numeric import sweep_kernels as SW
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    phases = []
+    for c in range(n):
+        phases.append(("diag", np.array([c])))
+        if c + 1 < n:
+            phases.append(("upd", np.array([c]), np.array([c]),
+                           np.array([c + 1])))
+    tabs = SW.sweep_direction(phases, n, dev)
+    plan = {"nbc": n, "T": T, "fwd": tabs[0], "items": {"fwd": tabs[1]}}
+    pool = torch.randn(n, T, T, device=dev, generator=g) / T
+    dinv = (torch.eye(T, device=dev)
+            + torch.randn(n, T, T, device=dev, generator=g) / (4 * T))
+    y2 = torch.randn(n, T, device=dev, generator=g)
+    got, ref = y2.clone(), y2.clone()
+    SW.run_sweep(pool, dinv, got, plan, "fwd")
+    SW.run_sweep_ref(pool, dinv, ref, plan, "fwd")
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not err <= TOL_K2 * float(ref.abs().max()):
+        raise AssertionError(f"K2 chain disagrees with its twin ({err:.3e})")
+    ms = cuda_ms(lambda: SW.run_sweep(pool, dinv, y2.clone(), plan, "fwd"))
+    log(f"timing K2 chain of {n} columns ({2 * n - 1} dependent items): "
+        f"{ms:.3f} ms, {ms * 1e3 / (2 * n - 1):.2f} us an item; max|d| "
+        f"{err:.3e}")
+    return ms
 
 
 # zero pivots planted by planted_tiles
@@ -437,8 +530,11 @@ def counters():
 
 
 def reset_counts():
+    from pastix_tpu_torch.numeric import leftlook as LL
+
     for fn in counters().values():
         fn.launches = fn.twin_launches = 0
+    LL.gemm_scatter_ll.half_launches = 0
 
 
 def read_counts(path, need, forbid=()):
@@ -482,6 +578,7 @@ def drive(path, A, cfg, dev, need, schur=None, forbid=()):
     ``solve_with_schur``) to a fp64 residual <= 1e-10.  Returns (solver,
     launches, numbers)."""
     import torch
+    from pastix_tpu_torch.numeric import leftlook as LL
 
     dev_ = torch.device(dev)
     reset_counts()
@@ -537,6 +634,17 @@ def drive(path, A, cfg, dev, need, schur=None, forbid=()):
     if not max(res, s.report.residual) <= TOL_RES:
         raise AssertionError(f"{path}: residual {res:.3e} above {TOL_RES}")
     launches = read_counts(path, need, forbid)
+    log(f"  K1 launches on 128 x 64 halves: "
+        f"{LL.gemm_scatter_ll.half_launches} of {launches['K1']}")
+    if schur is None:
+        # K2: one launch a sweep direction, a fwd+bwd pair a precondition
+        # (the first solve and one a refinement step)
+        pairs = s.report.refine_iters + 1
+        log(f"  K2 launches {launches['K2']} for {pairs} fwd+bwd sweep "
+            f"pairs")
+        if launches["K2"] > 2 * pairs:
+            raise AssertionError(f"{path}: more than 2 K2 launches a "
+                                 "fwd+bwd sweep pair")
     return s, launches, {
         "fact_ms": fact_s[1] * 1e3, "gflops": gflops,
         "solve_ms": s.report.solve_time * 1e3, "get_schur_ms": get_ms,
@@ -658,6 +766,24 @@ def k4_timed(solver, lu):
     return ms, plain, bd, lib, err
 
 
+def k1_gather_timed(lists, T):
+    """The per-chunk bf16 operand gather of ``gemm_scatter_ll`` alone
+    over one level's K1 lists (CUDA events), as the wrapper runs it."""
+    import torch
+
+    nu = max(c.cu.numel() for chunks, _, _, _ in lists for c in chunks)
+    pool = lists[0][2]
+    cache = torch.empty((nu, T, T), dtype=torch.bfloat16, device=pool.device)
+
+    def run():
+        for chunks, kw, pool, _ in lists:
+            src = kw.get("src_pool", pool)
+            for c in chunks:
+                cache[: c.cu.numel()].copy_(src.index_select(0, c.cu))
+
+    return cuda_ms(run)
+
+
 def check_lists(check, lists, label, errs, key, upd):
     """``check`` (check_k1 / check_k3) on each list of
     ``k1_lists``/``k3_lists`` with ``upd`` operands; the largest max|d|
@@ -688,9 +814,23 @@ def main_path(nx, dev, errs):
     k1 = e2_timed("K1 main path busiest level", LL.gemm_scatter_ll,
                   LL.gemm_scatter_ll_ref, k1_lists(s, lv), s.layout.T,
                   k1_flops, upd)
-    e2_timed("K1 main path tail pre-pass", LL.gemm_scatter_ll,
-             LL.gemm_scatter_ll_ref, tail, s.layout.T, k1_flops, upd)
+    shape = lambda chunks: [
+        (c.nseg, c.n_pairs, int((c.seg_ptr[1:] - c.seg_ptr[:-1]).max()))
+        for c in chunks]
+    log(f"  K1 chunks (segments, pairs, longest segment): busiest level "
+        f"{shape(lv.ll)}; tail pre-pass {shape(s._fact_fn.tail)}")
+    gather = k1_gather_timed(k1_lists(s, lv), s.layout.T)
+    log(f"  K1 busiest level: wrapper {k1[0]:.3f} ms, its bf16 operand "
+        f"gather alone {gather:.3f} ms ({gather / k1[0]:.1%}), kernel "
+        f"{k1[0] - gather:.3f} ms")
+    k1t = e2_timed("K1 main path tail pre-pass", LL.gemm_scatter_ll,
+                   LL.gemm_scatter_ll_ref, tail, s.layout.T, k1_flops, upd)
+    gather_t = k1_gather_timed(tail, s.layout.T)
+    log(f"  K1 tail pre-pass: wrapper {k1t[0]:.3f} ms, gather alone "
+        f"{gather_t:.3f} ms ({gather_t / k1t[0]:.1%}), kernel "
+        f"{k1t[0] - gather_t:.3f} ms")
     k2 = k2_timed(s)
+    k2_chain_timed(s.device)
     return launches, num, k1, k2
 
 
@@ -740,6 +880,7 @@ def ldlt_path(nx, dev, errs):
     lv, upd = busiest_level(s._fact_fn), upd_of(s)
     check_lists(check_k1, k1_lists(s, lv), "LDLT path busiest level", errs,
                 "K1d", upd)
+    errs["K2"] = max(errs["K2"], check_k2(s, 1, seed=8))
     k1d = e2_timed("K1 d LDLT path busiest level", LL.gemm_scatter_ll,
                    LL.gemm_scatter_ll_ref, k1_lists(s, lv), s.layout.T,
                    k1_flops, upd)
@@ -766,11 +907,17 @@ def schur_path(kind, A, nx, upd, key, dev, errs):
     from pastix_tpu_torch.config import Factorization
     from pastix_tpu_torch.numeric import pipelined as PL
 
+    LLT, LU, LDLT = Factorization.LLT, Factorization.LU, Factorization.LDLT
     need = ("K1", "K2", "K3") + (() if kind == Factorization.LLT
                                  else ("K4",))
     s, launches, num = drive(f"{kind.name} Schur path (nx={nx})", A,
                              kind_cfg(kind, upd), dev, need,
                              schur=last_plane(nx))
+    check_lists(check_k1, k1_lists(s, busiest_level(s._fact_fn)),
+                f"{kind.name} Schur path busiest level", errs,
+                {LLT: "K1", LU: "K1x", LDLT: "K1d"}[kind], upd_of(s))
+    k2key = "K2lu" if kind == Factorization.LU else "K2"
+    errs[k2key] = max(errs[k2key], check_k2(s, 1, seed=6))
     lv = max(s._fact_fn.levels,
              key=lambda lv: sum(c.n_pairs for c in lv.schur))
     check_lists(check_k3, k3_lists(s, lv),
@@ -1298,6 +1445,8 @@ def rightlook_path(label, A, kind, modes, dev, errs):
             "plan_s": plan_s, "tiles": lay.npool, "peak_gib": peak,
         }, timed)
         del steps, pools
+    k2key = "K2lu" if kind.name == "LU" else "K2"
+    errs[k2key] = max(errs[k2key], check_k2(s, 1, seed=11))
     del s
     return out
 
@@ -1415,9 +1564,13 @@ def fused_path(nx, dev, errs, left_ms, stream_ms):
                                  "level with panels and the tail")
         num["unfused_fact_ms"] = base
         out[e2] = (launches, num)
+        errs["K2"] = max(errs["K2"], check_k2(s, 1, seed=12))
         if e2 == "stream":
             solver = s
         else:
+            check_lists(check_k1, k1_lists(s, busiest_level(fn)),
+                        "fused-DIAG left busiest level", errs, "K1",
+                        upd_of(s))
             k7, k8 = chol_timed(s, errs)
         del s
     return out, solver, k7, k8
@@ -1682,6 +1835,28 @@ def probe_harness(dev, errs):
     return out
 
 
+def sass_count(build, kernel, ops):
+    """How many of each SASS opcode of ``ops`` the library's ``kernel``
+    functions hold (``cuobjdump -sass``), or why it cannot say."""
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = os.path.join(build._OUT, f"libpastix_kernels_{build._digest()}.so")
+    if not os.path.isfile(tool):
+        return "cuobjdump not found"
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, inside = dict.fromkeys(ops, 0), False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            for op in ops:
+                counts[op] += f" {op}." in line or f" {op} " in line
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--nx", type=int, default=64,
@@ -1734,6 +1909,8 @@ def main() -> int:
         if ("registers" in line or "spill" in line or "entry function"
                 in line or line.startswith("---")):
             log(f"  ptxas: {line.strip()}")
+    hmma = sass_count(_build, "ll_gemm_scatter", ("HMMA", "HGMMA"))
+    log(f"K1 SASS: {hmma}")
     t0 = time.perf_counter()
     native.get_lib()
     log(f"native host library: {native.status} "

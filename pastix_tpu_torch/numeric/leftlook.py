@@ -9,9 +9,10 @@ equal to the reference's.  The chunks keep the reference's TPU fields
 once, at analysis time.
 
 ``gemm_scatter_ll`` launches the hand-written CUDA kernel
-(``csrc/ll_gemm_scatter.cu``) for a pool on a CUDA device and its plain
-twin ``gemm_scatter_ll_ref`` for a pool on the CPU, in the plain, the
-scaled (``d``, LDLᵗ) and the cross-pool (``src_pool``, LU) variants.
+(``csrc/ll_gemm_scatter.cu``: bf16 products on the tensor cores, fp32
+ones on the CUDA cores) for a pool on a CUDA device and its plain twin
+``gemm_scatter_ll_ref`` for a pool on the CPU, in the plain, the scaled
+(``d``, LDLᵗ) and the cross-pool (``src_pool``, LU) variants.
 """
 
 from __future__ import annotations
@@ -31,6 +32,11 @@ from pastix_tpu_torch.numeric.kernels import (
 _F_FIRST, _F_LAST, _F_WRWAIT, _F_PAR = 1, 2, 4, 8
 # pairs per batched product of the plain twin (bounds its transients)
 _REF_BATCH = 4096
+# K1's pieces: a chunk's dst segments are cut into pieces of at most
+# max(_PIECE_MIN, n_pairs / ctas) pairs, one CTA each, so that a segment
+# far longer than the others (the dense tail's top tiles) does not hold
+# its chunk; ctas is what the card holds at once (piece_ctas)
+_PIECE_MIN = 8
 
 
 def build_ll_schedule(
@@ -316,16 +322,61 @@ class LLChunk:
     a_slot: torch.Tensor  # [n] cache slot of a ("full" mode; else pair_a)
     b_slot: torch.Tensor  # [n] cache slot of b
     rl: torch.Tensor  # [n] first row of each pair's window
+    piece_ptr: torch.Tensor  # [npiece + 1] pair offsets of the pieces
+    piece_seg: torch.Tensor  # [npiece] the segment of each piece
+    seg_piece_ptr: torch.Tensor  # [nseg + 1] piece offsets per segment
+    piece_slot: torch.Tensor  # [npiece] partial-sum slot, -1: not cut
+    nslot: int  # pieces of segments cut in more than one
     pair_k: torch.Tensor = None  # [n] source column of each pair (LDLᵗ d)
 
     @property
     def nseg(self) -> int:
         return self.seg_dst.numel()
 
+    @property
+    def npiece(self) -> int:
+        return self.piece_seg.numel()
+
+
+def piece_ctas(device) -> int:
+    """The CTAs K1 runs at once on ``device``'s card: two on each SM (its
+    tensor-core kernel's occupancy); 0 on the CPU, where no kernel reads
+    the pieces."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    return 2 * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def piece_len(n_pairs, ctas) -> int:
+    """Pairs a piece holds at most: max(_PIECE_MIN, ceil(n_pairs /
+    ctas)), or _PIECE_MIN for ``ctas`` 0."""
+    return max(_PIECE_MIN, -(-n_pairs // ctas)) if ctas else _PIECE_MIN
+
+
+def ll_pieces(seg_ptr, n_pairs, ctas):
+    """(piece_ptr, piece_seg, seg_piece_ptr, piece_slot, nslot) of one
+    chunk: each dst segment cut into consecutive pieces of at most
+    :func:`piece_len` pairs; the pieces of a segment cut in more than one
+    are numbered 0.. in order (their partial sums' slots), the others get
+    -1."""
+    L = piece_len(n_pairs, ctas)
+    seg_len = np.diff(seg_ptr)
+    npc = -(-seg_len // L)
+    piece_seg = np.repeat(np.arange(seg_len.size), npc)
+    first = np.repeat(np.cumsum(npc) - npc, npc)
+    starts = seg_ptr[piece_seg] + (np.arange(piece_seg.size) - first) * L
+    cut = npc[piece_seg] > 1
+    slot = np.full(piece_seg.size, -1, np.int64)
+    slot[cut] = np.arange(int(cut.sum()))
+    return (np.r_[starts, n_pairs], piece_seg, np.r_[0, np.cumsum(npc)],
+            slot, int(cut.sum()))
+
 
 def ll_plan(schedule, device) -> list:
     """Kernel tables (:class:`LLChunk`) of a :func:`build_ll_schedule`
-    result, uploaded to ``device``."""
+    result, uploaded to ``device``, the pieces cut for its card."""
+    ctas = piece_ctas(device)
     out = []
     for t in schedule:
         cu = np.asarray(t["cu"], np.int64)
@@ -343,6 +394,9 @@ def ll_plan(schedule, device) -> list:
             pair_a = np.asarray(t["ga"], np.int64)[real]
             a_slot = pair_a
         starts = np.flatnonzero(np.r_[True, dst[1:] != dst[:-1]])
+        seg_ptr = np.r_[starts, dst.size]
+        piece_ptr, piece_seg, seg_piece_ptr, slot, nslot = ll_pieces(
+            seg_ptr, dst.size, ctas)
         tens = lambda a: torch.as_tensor(
             np.ascontiguousarray(a, np.int64), device=device
         )
@@ -350,11 +404,14 @@ def ll_plan(schedule, device) -> list:
             mode=t["mode"], H=int(t["H"]),
             n_pairs=int(dst.size),
             cu=tens(cu),
-            seg_ptr=tens(np.r_[starts, dst.size]),
+            seg_ptr=tens(seg_ptr),
             seg_dst=tens(dst[starts]),
             pair_a=tens(pair_a), pair_b=tens(cu[b_slot]),
             a_slot=tens(a_slot), b_slot=tens(b_slot),
             rl=tens(np.asarray(t["rl"], np.int64)[real]),
+            piece_ptr=tens(piece_ptr), piece_seg=tens(piece_seg),
+            seg_piece_ptr=tens(seg_piece_ptr), piece_slot=tens(slot),
+            nslot=nslot,
             pair_k=(tens(np.asarray(t["gk"], np.int64)[real])
                     if "gk" in t else None),
         ))
@@ -399,7 +456,17 @@ def gemm_scatter_ll(pool: torch.Tensor, plan, update_dtype=torch.bfloat16, *,
         nu_max = max((c.cu.numel() for c in plan), default=0)
         cache = torch.empty((nu_max, T, T), dtype=torch.bfloat16,
                             device=pool.device)
+        sms = piece_ctas(pool.device) // 2
+        # the partial sums of cut segments, and their arrival counters
+        # (the kernel leaves them zero)
+        scratch = torch.empty(max((c.nslot for c in plan), default=0) * T * T,
+                              dtype=torch.float32, device=pool.device)
+        count = torch.zeros(2 * max((c.nseg for c in plan), default=0),
+                            dtype=torch.int32, device=pool.device)
     for c in plan:
+        # the tensor-core kernel covers a T x T dst tile a CTA, or a
+        # 128 x 64 half when whole tiles would leave SMs without a CTA
+        half = bf16 and T == 128 and c.npiece < sms
         if bf16:
             # operand tiles are panels of earlier columns, which no chunk
             # of this list writes: gathering before the launch is exact
@@ -417,14 +484,20 @@ def gemm_scatter_ll(pool: torch.Tensor, plan, update_dtype=torch.bfloat16, *,
             b_idx.data_ptr(), c.rl.data_ptr(),
             None if d is None else d.data_ptr(),
             None if d is None else c.pair_k.data_ptr(),
-            c.nseg, T, c.H, variant, stream,
+            c.piece_ptr.data_ptr(), c.piece_seg.data_ptr(),
+            c.seg_piece_ptr.data_ptr(), c.piece_slot.data_ptr(),
+            scratch.data_ptr() if bf16 else None,
+            count.data_ptr() if bf16 else None,
+            c.nseg, c.npiece, T, c.H, variant, T // 2 if half else T, stream,
         )
         _build.check(err, "gemm_scatter_ll")
         gemm_scatter_ll.launches += 1
+        gemm_scatter_ll.half_launches += half
     return pool
 
 
 gemm_scatter_ll.launches = 0  # K1 launches (one per chunk)
+gemm_scatter_ll.half_launches = 0  # of those, on 128 x 64 halves
 gemm_scatter_ll.twin_launches = 0  # calls of the plain twin
 
 

@@ -5,11 +5,12 @@
 chunking drops the level boundaries, which the TPU never needed because
 its grid ran in order; :func:`sweep_phase_offsets` recovers them from
 ``layout.levels`` and :func:`sweep_plan` turns each level's diag and
-update phases into the tables the CUDA kernel reads.
+update phases into the twin's tables and the CUDA kernel's work items.
 
 ``run_sweep`` launches the hand-written CUDA kernel (``csrc/sweep.cu``),
-once per level and phase, for tensors on a CUDA device, and its plain twin
-``run_sweep_ref`` for tensors on the CPU.
+once per sweep direction over the work items of :func:`sweep_items`, for
+tensors on a CUDA device, and its plain twin ``run_sweep_ref`` (level
+phase by level phase) for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -117,78 +118,190 @@ def sweep_phase_offsets(layout):
     return {"fwd": fwd, "bwd": bwd}
 
 
-# update ops per CTA of K2's first pass: a dst's run of ops is cut into
-# sub-segments of at most this many, so a dst with many ops spreads over
-# many SMs; the second pass adds the partial sums in a fixed order
-_OPS_PER_CTA = 4
+# update ops per work item of K2, per direction: a dst's run of ops in one
+# phase is cut into sub-segments of at most this many, so a dst with many
+# ops spreads over many SMs; its diag item adds the partial sums in a
+# fixed order.  The backward sweep's longest chain runs through columns
+# whose ops (their panel tiles) all land in one phase: one op an item
+# loads those tiles on as many SMs at once; the forward sweep's chain
+# items hold one op anyway, and 4 keep its item count down
+_OPS_PER_ITEM = {"fwd": 4, "bwd": 1}
 # ops per batched product of the plain twin (bounds its transients)
 _REF_BATCH = 8192
+# work item kinds of K2 (csrc/sweep.cu)
+DIAG, UPD, FLUSH = 0, 1, 2
 
 
 @dataclasses.dataclass
 class SweepPhase:
-    """One level phase.  diag: ``cols``.  upd: the phase's ops sorted by
-    dst (stable), cut into sub-segments of at most ``_OPS_PER_CTA`` ops
-    that never cross a dst."""
+    """One level phase, as the twin runs it.  diag: ``cols``.  upd: the
+    phase's ops sorted by dst (stable)."""
 
     kind: str
     cols: torch.Tensor = None  # diag: [nc] columns
-    sub_ptr: torch.Tensor = None  # upd: [nsub + 1] op offsets
-    seg_sub_ptr: torch.Tensor = None  # upd: [nseg + 1] sub offsets per dst
-    seg_dst: torch.Tensor = None  # upd: [nseg] dst block-row
     op_tile: torch.Tensor = None  # upd: [nop] pool index of the tile
     op_src: torch.Tensor = None  # upd: [nop] src block-row
-    op_dst: torch.Tensor = None  # upd: [nop] dst block-row (twin)
+    op_dst: torch.Tensor = None  # upd: [nop] dst block-row
+
+
+@dataclasses.dataclass
+class SweepItems:
+    """K2's work list for one direction, in ticket order (the phases'
+    order, flush items last).  ``item`` rows are (kind, col, lo, hi,
+    slot): a DIAG or FLUSH item of column ``col`` sums the partial slots
+    ``slot_list[lo:hi]`` (every sub-segment that feeds ``col``, in ticket
+    order), then DIAG applies the diagonal; an UPD item runs the ops
+    ``lo:hi`` into ``col`` and writes partial slot ``slot`` (its rank
+    among the UPD items).  ``op_wait``: the op's src has a DIAG item in
+    this sweep (else y[src] is final from the start: the Schur rows of
+    the backward sweep)."""
+
+    item: torch.Tensor  # [nitems, 5]
+    slot_list: torch.Tensor  # [nslot]
+    op_tile: torch.Tensor  # [nop]
+    op_src: torch.Tensor  # [nop]
+    op_wait: torch.Tensor  # [nop]
+    nslot: int
+    ops_max: int  # the most ops of an UPD item
+
+    @property
+    def nitems(self) -> int:
+        return self.item.shape[0]
+
+
+def sweep_items(phases, nbc):
+    """Numpy tables of :class:`SweepItems` from one direction's phases,
+    each ``("diag", cols)`` or ``("upd", sub_ptr, tile, src, dst)``: the
+    phase's ops sorted by dst and cut at ``sub_ptr`` into sub-segments of
+    one dst each.  Raises unless every item waits only on items with
+    smaller tickets, which is what keeps the persistent kernel free of
+    deadlock."""
+    kinds, cols, los, his, tiles, srcs = [], [], [], [], [], []
+    nop = 0
+    for ph in phases:
+        if ph[0] == "diag":
+            n = ph[1].size
+            kinds.append(np.full(n, DIAG))
+            cols.append(ph[1])
+            los.append(np.zeros(n, np.int64))
+            his.append(np.zeros(n, np.int64))
+            continue
+        _, sub_ptr, tile, src, dst = ph
+        nsub = sub_ptr.size - 1
+        kinds.append(np.full(nsub, UPD))
+        cols.append(dst[sub_ptr[:-1]])
+        los.append(nop + sub_ptr[:-1])
+        his.append(nop + sub_ptr[1:])
+        tiles.append(tile)
+        srcs.append(src)
+        nop += tile.size
+    cat = lambda parts: (np.concatenate(parts).astype(np.int64) if parts
+                         else np.empty(0, np.int64))
+    kind, col, lo, hi = cat(kinds), cat(cols), cat(los), cat(his)
+    op_tile, op_src = cat(tiles), cat(srcs)
+    upd = kind == UPD
+    has_diag = np.zeros(nbc, bool)
+    has_diag[col[kind == DIAG]] = True
+    flush = np.unique(col[upd & ~has_diag[col]])
+    nf = flush.size
+    kind = np.r_[kind, np.full(nf, FLUSH)]
+    col = np.r_[col, flush]
+    lo = np.r_[lo, np.zeros(nf, np.int64)]
+    hi = np.r_[hi, np.zeros(nf, np.int64)]
+    slot = np.full(kind.size, -1, np.int64)
+    slot[np.flatnonzero(kind == UPD)] = np.arange(int(upd.sum()))
+    # the slots feeding each column, in ticket order
+    upd_dst = col[kind == UPD]
+    slot_list = np.argsort(upd_dst, kind="stable").astype(np.int64)
+    ptr = np.r_[0, np.cumsum(np.bincount(upd_dst, minlength=nbc))]
+    red = kind != UPD
+    lo[red], hi[red] = ptr[col[red]], ptr[col[red] + 1]
+    op_wait = has_diag[op_src]
+    # every wait points at a smaller ticket
+    ticket = np.arange(kind.size)
+    owner = np.full(nbc, -1, np.int64)
+    owner[col[red]] = ticket[red]
+    op_item = np.repeat(ticket[kind == UPD], (hi - lo)[kind == UPD])
+    if (np.unique(col[red]).size != red.sum()
+            or (owner[upd_dst] <= ticket[kind == UPD]).any()
+            or (owner[op_src[op_wait]] >= op_item[op_wait]).any()):
+        raise RuntimeError("K2's work items are not in a topological order")
+    nops = (hi - lo)[kind == UPD]
+    return {"item": np.stack([kind, col, lo, hi, slot], axis=1),
+            "slot_list": slot_list, "op_tile": op_tile, "op_src": op_src,
+            "op_wait": op_wait.astype(np.int64), "nslot": int(upd.sum()),
+            "ops_max": int(nops.max()) if nops.size else 0}
+
+
+def sweep_direction(phases, nbc, device, ops=4):
+    """One direction's tables on ``device`` from its phases in execution
+    order, each ``("diag", cols)`` or ``("upd", tile, src, dst)`` (numpy
+    int64): the twin's :class:`SweepPhase` list (an update phase's ops
+    sorted by dst, stable) and K2's :class:`SweepItems` (a dst's ops in a
+    phase cut into sub-segments of at most ``ops``), from one upload."""
+    parts, meta, item_phases = [], [], []
+    for ph in phases:
+        if ph[0] == "diag":
+            meta.append(("diag", len(parts)))
+            parts.append(ph[1])
+            item_phases.append(ph)
+            continue
+        tile, src, dst = ph[1:]
+        o = np.argsort(dst, kind="stable")
+        d = dst[o]
+        starts = np.flatnonzero(np.r_[True, d[1:] != d[:-1]])
+        lens = np.diff(np.r_[starts, d.size])
+        nsub = -(-lens // ops)
+        # sub-segment j of dst s starts at op starts[s] + j * ops
+        first_sub = np.repeat(np.cumsum(nsub) - nsub, nsub)
+        sub_starts = (np.repeat(starts, nsub)
+                      + (np.arange(nsub.sum()) - first_sub) * ops)
+        meta.append(("upd", len(parts)))
+        parts += [tile[o], src[o], d]
+        item_phases.append(("upd", np.r_[sub_starts, d.size], *parts[-3:]))
+    items = sweep_items(item_phases, nbc)
+    names = ("item", "slot_list", "op_tile", "op_src", "op_wait")
+    parts += [items[f].ravel() for f in names]
+    flat = torch.as_tensor(
+        np.concatenate(parts) if parts else np.empty(0, np.int64),
+        device=device,
+    )
+    views = list(torch.split(flat, [p.size for p in parts]))
+    out = []
+    for kind, i in meta:
+        if kind == "diag":
+            out.append(SweepPhase(kind, cols=views[i]))
+        else:
+            out.append(SweepPhase(kind, None, *views[i:i + 3]))
+    tabs = dict(zip(names, views[len(views) - len(names):]))
+    tabs["item"] = tabs["item"].view(-1, 5)
+    return out, SweepItems(**tabs, nslot=items["nslot"],
+                           ops_max=items["ops_max"])
 
 
 def sweep_plan(layout, device):
-    """Per-direction lists of :class:`SweepPhase` on ``device``.
+    """Per-direction lists of :class:`SweepPhase` (the twin's tables) and
+    :class:`SweepItems` (K2's, under ``plan["items"]``) on ``device``.
 
     The ops come from :func:`build_sweep_schedule` with its pads (dst ==
-    nbc) dropped; int64 tables throughout."""
+    nbc) dropped; int64 tables throughout; an update item holds at most
+    ``_OPS_PER_ITEM`` ops of its direction."""
     sched = build_sweep_schedule(layout)
     nbc = sched["nbc"]
     offs = sweep_phase_offsets(layout)
-    plan = {"nbc": nbc, "T": sched["T"]}
+    plan = {"nbc": nbc, "T": sched["T"], "items": {}}
     for key in ("fwd", "bwd"):
-        ops = {
+        flat = {
             f: np.concatenate([c[f] for c in sched[key]]).astype(np.int64)
             for f in ("tidx", "src", "dst")
         }
-        real = ops["dst"] != nbc
-        tidx, src, dst = (ops[f][real] for f in ("tidx", "src", "dst"))
-        # one upload per direction; each phase holds views into it
-        parts, meta = [], []
-        for kind, lo, hi in offs[key]:
-            if kind == "diag":
-                meta.append((kind, len(parts)))
-                parts.append(dst[lo:hi])
-                continue
-            o = np.argsort(dst[lo:hi], kind="stable") + lo
-            d = dst[o]
-            starts = np.flatnonzero(np.r_[True, d[1:] != d[:-1]])
-            lens = np.diff(np.r_[starts, d.size])
-            nsub = -(-lens // _OPS_PER_CTA)
-            # sub-segment j of dst s starts at op starts[s] + j * _OPS_PER_CTA
-            first_sub = np.repeat(np.cumsum(nsub) - nsub, nsub)
-            sub_starts = (np.repeat(starts, nsub)
-                          + (np.arange(nsub.sum()) - first_sub) * _OPS_PER_CTA)
-            meta.append((kind, len(parts)))
-            parts += [np.r_[sub_starts, d.size], np.r_[0, np.cumsum(nsub)],
-                      d[starts], tidx[o], src[o], d]
-        sizes = [p.size for p in parts]
-        flat = torch.as_tensor(
-            np.concatenate(parts) if parts else np.empty(0, np.int64),
-            device=device,
-        )
-        views = list(torch.split(flat, sizes))
-        phases = []
-        for kind, i in meta:
-            if kind == "diag":
-                phases.append(SweepPhase(kind, cols=views[i]))
-            else:
-                phases.append(SweepPhase(kind, None, *views[i:i + 6]))
-        plan[key] = phases
+        real = flat["dst"] != nbc
+        tidx, src, dst = (flat[f][real] for f in ("tidx", "src", "dst"))
+        phases = [("diag", dst[lo:hi]) if kind == "diag"
+                  else ("upd", tidx[lo:hi], src[lo:hi], dst[lo:hi])
+                  for kind, lo, hi in offs[key]]
+        plan[key], plan["items"][key] = sweep_direction(
+            phases, nbc, device, _OPS_PER_ITEM[key])
     return plan
 
 
@@ -232,9 +345,9 @@ def run_sweep(pool, dinv, y2, plan, key, lu=False):
     """One sweep of ``y2`` (nbc*R, T) in place; ``key`` "fwd" applies
     L^{-1}, "bwd" applies L^{-T}, or U^{-1} with ``lu`` (``pool`` the Uᵗ
     tiles, ``dinv`` the inverse upper diagonal tiles).  On a CUDA device:
-    kernel K2, one call per level phase (an update phase is two launches:
-    partial sums, then their fixed-order reduction into y), in order on
-    the current stream.  On the CPU: the twin :func:`run_sweep_ref`."""
+    kernel K2, one persistent launch over the direction's work items
+    (``plan["items"][key]``) on the current stream.  On the CPU: the twin
+    :func:`run_sweep_ref`."""
     R = _check(pool, dinv, y2, plan)
     if y2.device.type == "cpu":
         return run_sweep_ref(pool, dinv, y2, plan, key, lu)
@@ -242,32 +355,24 @@ def run_sweep(pool, dinv, y2, plan, key, lu=False):
         raise ValueError(f"unsupported device {y2.device}")
     lib = _build.get_lib()
     stream = _build.stream_ptr(y2.device)
-    T = plan["T"]
+    nbc, T = plan["nbc"], plan["T"]
+    it = plan["items"][key]
     trans_upd, trans_diag = _trans(key, lu)
-    nsub_max = max((ph.sub_ptr.numel() - 1 for ph in plan[key]
-                    if ph.kind == "upd"), default=0)
-    partial = torch.empty(nsub_max * R * T, dtype=torch.float32,
+    state = torch.empty(nbc + 1, dtype=torch.int32, device=y2.device)
+    partial = torch.empty(max(it.nslot, 1) * R * T, dtype=torch.float32,
                           device=y2.device)
-    for ph in plan[key]:
-        if ph.kind == "diag":
-            err = lib.pastix_sweep_diag(
-                y2.data_ptr(), dinv.data_ptr(), ph.cols.data_ptr(),
-                ph.cols.numel(), T, R, trans_diag, stream,
-            )
-        else:
-            err = lib.pastix_sweep_update(
-                y2.data_ptr(), pool.data_ptr(), partial.data_ptr(),
-                ph.sub_ptr.data_ptr(), ph.seg_sub_ptr.data_ptr(),
-                ph.seg_dst.data_ptr(), ph.op_tile.data_ptr(),
-                ph.op_src.data_ptr(), ph.sub_ptr.numel() - 1,
-                ph.seg_dst.numel(), T, R, trans_upd, stream,
-            )
-        _build.check(err, f"sweep {key} {ph.kind}")
-        run_sweep.launches += 1
+    err = lib.pastix_sweep_run(
+        y2.data_ptr(), pool.data_ptr(), dinv.data_ptr(), partial.data_ptr(),
+        state.data_ptr(), it.item.data_ptr(), it.slot_list.data_ptr(),
+        it.op_tile.data_ptr(), it.op_src.data_ptr(), it.op_wait.data_ptr(),
+        it.nitems, nbc, T, R, it.ops_max, trans_upd, trans_diag, stream,
+    )
+    _build.check(err, f"sweep {key}")
+    run_sweep.launches += 1
     return y2
 
 
-run_sweep.launches = 0  # K2 launches (one per level phase)
+run_sweep.launches = 0  # K2 launches (one per sweep direction)
 run_sweep.twin_launches = 0  # calls of the plain twin
 
 

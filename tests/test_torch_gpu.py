@@ -7,11 +7,13 @@ JAX, run them without the repository's conftest (which imports JAX):
 
 Tolerances: K1, K3, K5, K6, K9, K10, K11 and K12 max|kernel - twin| <=
 1e-4 max|twin| over the touched tiles, K2 <= 1e-5 max|twin| (summation order
-only), K4 <= 1e-5 max|twin| with equal clamp counts, K7 and K8 <= 1e-5
+only; K1 and K2 also repeat bit for bit), K4 <= 1e-5 max|twin| with equal clamp counts, K7 and K8 <= 1e-5
 max|twin| (a right-looking loop against a left-looking one), K13 <=
 1e-5 max|twin| (exact copies, summed in another order); the end-to-end
 solves to a residual of 1e-10.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -72,6 +74,7 @@ def test_k1_matches_twin(cuda, T, mode, upd):
     before = LL.gemm_scatter_ll.launches
     got = LL.gemm_scatter_ll(pool.clone(), plan, upd)
     assert LL.gemm_scatter_ll.launches == before + len(plan)
+    assert torch.equal(got, LL.gemm_scatter_ll(pool.clone(), plan, upd))
     ref = LL.gemm_scatter_ll_ref(pool.clone(), plan, upd)
     touched = torch.cat([c.seg_dst for c in plan]).unique()
     scale = float(ref[touched].abs().max())
@@ -79,17 +82,100 @@ def test_k1_matches_twin(cuda, T, mode, upd):
 
 
 @pytest.mark.parametrize("T", [32, 64, 128])
+@pytest.mark.parametrize("mode", ["bcache", "full"])
+@pytest.mark.parametrize("variant", ["plain", "d", "src_pool"])
+def test_k1_segments_and_row_windows(cuda, T, mode, variant):
+    """K1's bf16 kernel on random tiles: 299 dst tiles of 2 pairs (whole
+    tiles a CTA at T = 128) and one of 250 pairs (cut into 32 pieces
+    whose sums the last one adds; alone, on 128 x 64 halves at T = 128),
+    with row windows whose rl and H are off the 16-row grid (H = T, T-3,
+    17, 5, 1); two runs bit-identical."""
+    rng = np.random.default_rng(T)
+    nsrc, ndst = 96, 300
+    tiles = lambda n: torch.tensor(rng.standard_normal((n, T, T)),
+                                   dtype=torch.float32, device=cuda)
+    pool = tiles(nsrc + ndst)
+    gd = np.r_[np.repeat(np.arange(nsrc, nsrc + ndst - 1), 2),
+               np.full(250, nsrc + ndst - 1)]
+    ga, gb = (rng.integers(0, nsrc, gd.size) for _ in range(2))
+    gk = rng.integers(0, 40, gd.size) if variant == "d" else None
+    kw = {"d": torch.tensor(rng.uniform(0.5, 2.0, (40, T)),
+                            dtype=torch.float32, device=cuda)
+          } if variant == "d" else {}
+    if variant == "src_pool":
+        kw["src_pool"] = tiles(nsrc + ndst)
+    plans = [LL.ll_plan(LL.build_ll_schedule(
+        ga[sl], gb[sl], gd[sl], gk=None if gk is None else gk[sl],
+        cap=1024, mode=mode, T=T), cuda)
+        for sl in (slice(None), slice(-250, None))]
+    assert [sum(c.nseg for c in p) for p in plans] == [ndst, 1]
+    assert [sum(c.nslot for c in p) for p in plans] == [32, 32]
+    halves = LL.gemm_scatter_ll.half_launches
+    for plan in plans:
+        for H in (T, T - 3, 17, 5, 1):
+            p = [dataclasses.replace(c, H=H, rl=torch.as_tensor(
+                rng.integers(0, T - H + 1, c.n_pairs), device=cuda))
+                for c in plan]
+            got = LL.gemm_scatter_ll(pool.clone(), p, torch.bfloat16, **kw)
+            assert torch.equal(got, LL.gemm_scatter_ll(
+                pool.clone(), p, torch.bfloat16, **kw))
+            _close_e2(got, LL.gemm_scatter_ll_ref(
+                pool.clone(), p, torch.bfloat16, **kw), p)
+    # the lone segment runs on halves at T = 128, the 300 on whole tiles
+    assert LL.gemm_scatter_ll.half_launches - halves == (
+        10 if T == 128 else 0)
+
+
+@pytest.mark.parametrize("T", [32, 64, 128])
 @pytest.mark.parametrize("R", [1, 3, 6])
 def test_k2_matches_twin(cuda, T, R):
+    """One launch a direction, bit-identical runs, against the twin."""
     s = _factored(T, cuda)
     lay, f = s.layout, s.factors
     y2 = torch.randn(lay.nbc * R, lay.T, device=cuda,
                      generator=torch.Generator(cuda).manual_seed(R))
-    got, ref = y2.clone(), y2.clone()
+    got, again, ref = y2.clone(), y2.clone(), y2.clone()
     for key in ("fwd", "bwd"):
+        before = SW.run_sweep.launches
         SW.run_sweep(f.pool, f.dinv, got, s._solve_fn.plan, key)
+        assert SW.run_sweep.launches == before + 1
+        SW.run_sweep(f.pool, f.dinv, again, s._solve_fn.plan, key)
         SW.run_sweep_ref(f.pool, f.dinv, ref, s._solve_fn.plan, key)
+    assert torch.equal(got, again)
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("T", [32, 128])
+@pytest.mark.parametrize("R", [1, 3])
+def test_k2_one_dst_of_hundreds_of_ops(cuda, T, R):
+    """A synthetic sweep: 300 columns, then 600 ops into column 300 in
+    one phase (150 sub-segments), then its diagonal; both directions'
+    transposes, one launch each, bit-identical runs, against the twin."""
+    rng = np.random.default_rng(T + R)
+    m, nbc = 300, 301
+    ops = 2 * m
+    phases = [("diag", np.arange(m)),
+              ("upd", rng.integers(0, 50, ops), np.repeat(np.arange(m), 2),
+               np.full(ops, m)),
+              ("diag", np.array([m]))]
+    tabs = SW.sweep_direction(phases, nbc, cuda)
+    plan = {"nbc": nbc, "T": T, "fwd": tabs[0], "bwd": tabs[0],
+            "items": {"fwd": tabs[1], "bwd": tabs[1]}}
+    assert int(tabs[1].item[-1, 3] - tabs[1].item[-1, 2]) == ops // 4
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+    pool = f32(rng.standard_normal((50, T, T)) / (T * ops) ** 0.5)
+    dinv = f32(np.eye(T) + 0.1 * rng.standard_normal((nbc, T, T)) / T)
+    y2 = f32(rng.standard_normal((nbc * R, T)))
+    for key in ("fwd", "bwd"):
+        got, again, ref = y2.clone(), y2.clone(), y2.clone()
+        before = SW.run_sweep.launches
+        SW.run_sweep(pool, dinv, got, plan, key)
+        assert SW.run_sweep.launches == before + 1
+        SW.run_sweep(pool, dinv, again, plan, key)
+        SW.run_sweep_ref(pool, dinv, ref, plan, key)
+        assert torch.equal(got, again)
+        assert float((got - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max())
 
 
 @pytest.mark.parametrize("upd", [None, "bfloat16"])
@@ -182,7 +268,7 @@ def _close_e2(got, ref, plan):
     assert float((got - ref).abs().max()) <= 1e-4 * scale
 
 
-@pytest.mark.parametrize("T", [32, 128])
+@pytest.mark.parametrize("T", [32, 64, 128])
 @pytest.mark.parametrize("mode", ["bcache", "full"])
 @pytest.mark.parametrize("upd", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
@@ -216,6 +302,8 @@ def test_k1_variants_match_twin(cuda, T, mode, upd, kind):
         before = LL.gemm_scatter_ll.launches
         got = LL.gemm_scatter_ll(pool.clone(), plan, upd, **kw)
         assert LL.gemm_scatter_ll.launches == before + len(plan)
+        assert torch.equal(got, LL.gemm_scatter_ll(pool.clone(), plan, upd,
+                                                   **kw))
         _close_e2(got, LL.gemm_scatter_ll_ref(pool.clone(), plan, upd, **kw),
                   plan)
 
@@ -294,13 +382,48 @@ def test_k2_lu_backward_matches_twin(cuda, T, R):
     lay, f = s.layout, s.factors
     y2 = torch.randn(lay.nbc * R, lay.T, device=cuda,
                      generator=torch.Generator(cuda).manual_seed(R))
-    got, ref = y2.clone(), y2.clone()
+    got, again, ref = y2.clone(), y2.clone(), y2.clone()
     plan = s._solve_fn.plan
+    before = SW.run_sweep.launches
     SW.run_sweep(f.pool, f.dinv, got, plan, "fwd")
     SW.run_sweep(f.pool_u, f.dinv_u, got, plan, "bwd", lu=True)
+    assert SW.run_sweep.launches == before + 2
+    SW.run_sweep(f.pool, f.dinv, again, plan, "fwd")
+    SW.run_sweep(f.pool_u, f.dinv_u, again, plan, "bwd", lu=True)
+    assert torch.equal(got, again)
     SW.run_sweep_ref(f.pool, f.dinv, ref, plan, "fwd")
     SW.run_sweep_ref(f.pool_u, f.dinv_u, ref, plan, "bwd", lu=True)
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("kind", [Factorization.LLT, Factorization.LU])
+def test_k2_many_rhs_match_twin(cuda, kind):
+    """R = 512 at T = 128 (128 passes of 4 right-hand sides; K2's shared
+    memory does not grow with R): forward, then backward (LU: Uᵗ pool,
+    untransposed diagonal), one launch a direction, bit-identical runs,
+    against the twin."""
+    R = 512
+    lu = kind == Factorization.LU
+    if lu:
+        _, s = _kind_solver(kind, 128, cuda)
+        s.factorize()
+    else:
+        s = _factored(128, cuda)
+    lay, f, plan = s.layout, s.factors, s._solve_fn.plan
+    sides = ((f.pool, f.dinv, False),
+             (f.pool_u, f.dinv_u, True) if lu else (f.pool, f.dinv, False))
+    y2 = torch.randn(lay.nbc * R, lay.T, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(R))
+    got, again, ref = y2.clone(), y2.clone(), y2.clone()
+    for key, (pool, dinv, lu_side) in zip(("fwd", "bwd"), sides):
+        before = SW.run_sweep.launches
+        SW.run_sweep(pool, dinv, got, plan, key, lu_side)
+        assert SW.run_sweep.launches == before + 1
+        SW.run_sweep(pool, dinv, again, plan, key, lu_side)
+        SW.run_sweep_ref(pool, dinv, ref, plan, key, lu_side)
+        assert torch.equal(got, again)
+        assert float((got - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max())
 
 
 @pytest.mark.parametrize("kind", [Factorization.LDLT, Factorization.LU])

@@ -218,3 +218,50 @@ def test_scaled_variant_needs_gk(case, variants):
     with pytest.raises(ValueError, match="gk"):
         LL.gemm_scatter_ll(torch.from_numpy(pool.copy()), plan, None,
                            d=torch.from_numpy(d))
+
+
+def _check_pieces(c):
+    """A chunk's pieces tile its segments in order, none longer than the
+    chunk's piece length, with a partial-sum slot for each piece of a cut
+    segment and -1 for the others."""
+    seg_ptr, pp = c.seg_ptr.numpy(), c.piece_ptr.numpy()
+    ps, spp, slot = (c.piece_seg.numpy(), c.seg_piece_ptr.numpy(),
+                     c.piece_slot.numpy())
+    L = LL.piece_len(c.n_pairs, LL.piece_ctas(c.seg_ptr.device))
+    assert pp[0] == 0 and pp[-1] == c.n_pairs
+    assert np.all(np.diff(pp) >= 1) and np.all(np.diff(pp) <= L)
+    assert np.array_equal(np.repeat(np.arange(c.nseg), np.diff(spp)), ps)
+    assert np.array_equal(pp[spp], seg_ptr)
+    cut = np.diff(spp)[ps] > 1
+    assert np.array_equal(slot[cut], np.arange(c.nslot))
+    assert np.all(slot[~cut] == -1)
+    # no piece shorter than L but a segment's last
+    last = np.r_[ps[1:] != ps[:-1], True]
+    assert np.all(np.diff(pp)[~last] == L)
+
+
+@pytest.mark.parametrize("mode", ["bcache", "full"])
+@pytest.mark.parametrize("rowb", [False, True], ids=["full_height", "rowb"])
+def test_ll_plan_pieces_tile_segments(case, mode, rowb):
+    lay, (ga, gb, gd), _ = case
+    rb = (lay.row_lo, lay.row_hi) if rowb else None
+    plan = LL.ll_plan(LL.build_ll_schedule(ga, gb, gd, group=4, cap=64,
+                                           mode=mode, rb=rb, T=lay.T), "cpu")
+    for c in plan:
+        _check_pieces(c)
+
+
+@pytest.mark.parametrize("n_long", [298, 5000])
+def test_ll_pieces_cut_a_long_segment(n_long):
+    """Segments of 2 and 3 pairs around one of ``n_long``: only the long
+    one is cut, into pieces of max(8, ceil(n / 264)) pairs (two CTAs on
+    each of an H100's 132 SMs)."""
+    seg_ptr = np.array([0, 2, 2 + n_long, 5 + n_long])
+    n = int(seg_ptr[-1])
+    piece_ptr, piece_seg, spp, slot, nslot = LL.ll_pieces(seg_ptr, n, 264)
+    L = max(8, -(-n // 264))
+    k = -(-n_long // L)
+    assert nslot == k and list(np.diff(spp)) == [1, k, 1]
+    assert list(slot) == [-1, *range(k), -1]
+    assert list(piece_ptr[1:k + 1]) == [2 + j * L for j in range(k)]
+    assert list(piece_seg) == [0] + [1] * k + [2]

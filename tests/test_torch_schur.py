@@ -115,7 +115,13 @@ def test_schur_columns_never_inverted_or_swept(case):
             if ph.kind == "diag":
                 assert int(ph.cols.max()) < sb
             elif key == "bwd":
-                assert int(ph.seg_dst.max()) < sb
+                assert int(ph.op_dst.max()) < sb
+        # K2's work items: no diagonal item, and no backward item at all,
+        # on a Schur column (the forward sweep flushes the Schur rows)
+        kind, col = plan["items"][key].item[:, :2].T
+        assert int(col[kind == 0].max()) < sb
+        if key == "bwd":
+            assert int(col.max()) < sb
 
 
 @pytest.mark.parametrize("T", [32, 64, 128])
