@@ -9,17 +9,19 @@ prints the final ``ok`` line:
 1. device: a CUDA device is required; prints the card's name and power
    limit (nvidia-smi);
 2. build: compiles the hand-written CUDA kernels K1-K13 from ``csrc/``
-   (one nvcc per source, in parallel; ptxas registers and spills, and
-   K1's HMMA count from ``cuobjdump -sass`` where the toolkit has it) and
+   (one nvcc per source, in parallel; ptxas registers, shared memory and
+   spills, and K1's and K3's HMMA counts from ``cuobjdump -sass`` where
+   the toolkit has it: none fails) and
    the port's native host library (g++; prints whether it was built or
    the Python ordering runs);
 3. kernels: each kernel against its plain PyTorch twin on the same inputs,
    max|d| <= 1e-4 max|ref| for K1 and K3, 1e-5 for K2 (summation order
-   only) and K4 (plus equal clamp counts); K1 and K2 also run twice and
-   must repeat bit for bit, and K2 must launch once a sweep direction: on the poisson_3d(24) T=128
-   layout, K1 (left-looking E2) on the busiest level's chunks and the
-   dense-tail pre-pass, bf16 and fp32 updates, K2 (sweeps) forward +
-   backward at R = 1 and R = 3; on the poisson_3d(24) T=128 Schur layout
+   only) and K4 (plus equal clamp counts); K1, K2 and K3 also run twice
+   and must repeat bit for bit (K3 wherever it is checked, phases 11 and
+   13 too), and K2 must launch once a sweep direction: on the
+   poisson_3d(24) T=128 layout, K1 (left-looking E2) on the busiest
+   level's chunks and the dense-tail pre-pass, bf16 and fp32 updates,
+   K2 (sweeps) forward + backward at R = 1 and R = 3; on the poisson_3d(24) T=128 Schur layout
    (Schur = its last 24^2 unknowns), K3 (right-looking E2) on the busiest
    residue level and on every residue pair in one list cut into chunks
    that split dst segments, bf16 and fp32; that layout's ``get_schur``
@@ -107,7 +109,11 @@ prints the final ``ok`` line:
    and 11; then K7 on the left path's level with the most diagonal tiles
    against its twin and against ``cholesky_ex`` + ``solve_triangular``
    (two library calls), and K8 on one tile (the dense tail's call), both
-   timed and bound; K1 (left) and K2 (both) against their twins;
+   timed and bound; K1 (left) and K2 (both) against their twins; then K8
+   on one tile at T = 32, 64 and 128 against its twin and timed beside
+   the two library calls, on a tile of condition 1e4 (L against the twin,
+   X against fp64 within T u cond(L)) and on a tile with a negative
+   pivot (NaN where the twin has it);
 13. E2 A/B harness (the reference's ``exp_pipe.py``): on exp_pipe's
    default triples (ng=8192, a pool of 12000 T=128 tiles, segments of
    about 3 pairs) and on the busiest right-looking level of phase 12's
@@ -182,6 +188,27 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def device_ms(fn, reps: int = 20):
+    """Mean device time of ``fn()`` in ms, the sum of every kernel, copy
+    and fill it runs on the card, by ``torch.profiler`` over ``reps``
+    runs after one warm-up: free of the host's launch overhead, which
+    :func:`cuda_ms` includes when the host is the slower side.  None if
+    the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / reps / 1e3 or None
+
+
 def bound(flops: float, peak: float, nbytes: float):
     """(bound_ms, bound_by): the larger of operations over the peak rate
     and bytes over the memory rate."""
@@ -251,7 +278,8 @@ def check_e2(name, run, run_ref, pool, chunks, update_dtype, label,
     ok = err <= TOL_E2 * scale
     log(f"{name} {label}: {len(chunks)} chunks, "
         f"{sum(c.n_pairs for c in chunks)} pairs, max|d|={err:.3e} "
-        f"max|ref|={scale:.3e} -> {'ok' if ok else 'FAIL'}")
+        f"max|ref|={scale:.3e}{', two runs bit-identical' if repeat else ''}"
+        f" -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} {label} disagrees with its twin")
     return err
@@ -269,7 +297,7 @@ def check_k3(pool, chunks, update_dtype, label, **kw):
 
     return check_e2("K3", PL.gemm_scatter_pipelined,
                     PL.gemm_scatter_pipelined_ref, pool, chunks,
-                    update_dtype, label, **kw)
+                    update_dtype, label, repeat=True, **kw)
 
 
 def sweep_pair(solver):
@@ -1070,10 +1098,12 @@ def e2_work(steps, T):
     return flops, nbytes + len(krows) * T * 4
 
 
-def rl_checked(name, run, run_ref, steps, pools, upd, T, errs, key):
+def rl_checked(name, run, run_ref, steps, pools, upd, T, errs, key,
+               repeat=False):
     """Right-looking E2 steps ``(dst, a_src, b_src, chunks, kw)`` with
     ``pools`` naming their tensors: each step against its twin on copies
-    of its pool (max|d| to ``errs[key]``), then all steps as one, kernel
+    of its pool (max|d| to ``errs[key]``; ``repeat``: and a second run
+    bit-identical to the first), then all steps as one, kernel
     and twin timed, and bound by :func:`e2_work` at the bf16 peak
     (``upd`` bf16) or the fp32 one.  Returns (kernel ms, twin ms, bound,
     the kernel's launches in its timed runs, counted from 0)."""
@@ -1082,7 +1112,7 @@ def rl_checked(name, run, run_ref, steps, pools, upd, T, errs, key):
     for dst, _, _, chunks, kw in steps:
         errs[key] = max(errs[key], check_e2(
             name, run, run_ref, pools[dst], chunks, upd,
-            f"{key} {dst} {str(upd)[6:]}", **kw))
+            f"{key} {dst} {str(upd)[6:]}", repeat=repeat, **kw))
     work = {k: pools[k].clone() for k in {st[0] for st in steps}}
 
     def step(fn):
@@ -1437,7 +1467,7 @@ def rightlook_path(label, A, kind, modes, dev, errs):
         key = f"{kind.name} {mode}"
         errs.setdefault(key, 0.0)
         timed = rl_checked(kern, run, ref, steps, pools, torch.bfloat16,
-                           lay.T, errs, key)
+                           lay.T, errs, key, repeat=kern == "K3")
         out[mode] = (launches, {
             "fact_ms": fact[1], "left_fact_ms": left_ms,
             "solve_ms": s.report.solve_time * 1e3,
@@ -1448,6 +1478,85 @@ def rightlook_path(label, A, kind, modes, dev, errs):
     k2key = "K2lu" if kind.name == "LU" else "K2"
     errs[k2key] = max(errs[k2key], check_k2(s, 1, seed=11))
     del s
+    return out
+
+
+def chol_two_calls(t):
+    """L⁻¹ of symmetric tiles by two library calls: ``cholesky_ex`` and
+    ``solve_triangular`` (the yardstick of K7 and K8, used nowhere in
+    the port)."""
+    import torch
+
+    eye = torch.eye(t.shape[1], device=t.device).expand_as(t)
+    L, _ = torch.linalg.cholesky_ex(t)
+    return torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def k8_tiles(dev, errs):
+    """Phase 12: K8 on one tile at T = 32, 64 and 128 (symmetric positive
+    definite, numpy seed T) against its twin (1e-5 max|ref|), then
+    kernel, twin and :func:`chol_two_calls` timed; one tile of condition
+    1e4 at each T (eigenvalues 1 down to 1e-4, evenly in log): L against
+    the twin at 1e-5, and X against the fp64 inverse of the same fp32
+    tile within the textbook bound T u cond(L) for triangular inversion
+    (u = 2^-24; the twin's own X is off by 1.4e-5 to 4.9e-5 there, so
+    two summation orders differ by more than 1e-5); and one tile with a
+    negative pivot at row 70 % T: NaN exactly where the twin has it
+    (lower triangles), the rest within 1e-5.  Kernel and library calls
+    are also timed on the card alone (:func:`device_ms`): at small T the
+    host's launch overhead outlasts them.  Returns {T: (ms, twin ms,
+    bound, two-call ms, device ms, two-call device ms)}."""
+    import torch
+    from pastix_tpu_torch.numeric import chol_inv as CI
+
+    out = {}
+    for T in (32, 64, 128):
+        rng = np.random.default_rng(T)
+        R = rng.standard_normal((T, T))
+        one = torch.tensor((R @ R.T / T + 3 * np.eye(T))[None],
+                           dtype=torch.float32, device=dev)
+        Q, _ = np.linalg.qr(rng.standard_normal((T, T)))
+        M = (Q * np.logspace(0, -4, T)) @ Q.T
+        ill = torch.tensor((M + M.T)[None] / 2, dtype=torch.float32,
+                           device=dev)
+        bad = one.clone()
+        bad[0, 70 % T, 70 % T] = -5.0
+        rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+        (L, X), (Lr, Xr) = CI.chol_inv(one), CI.chol_inv_ref(one)
+        err = max(rel(L, Lr), rel(X, Xr))
+        (L, X), (Lr, Xr) = CI.chol_inv(ill), CI.chol_inv_ref(ill)
+        L64 = torch.linalg.cholesky(ill.double())
+        X64 = torch.linalg.inv(L64)
+        ill_l, ill_x, twin_x = rel(L, Lr), rel(X.double(), X64), rel(
+            Xr.double(), X64)
+        x_bound = T * 2.0 ** -24 * float(torch.linalg.cond(L64[0]))
+        (L, X), (Lr, Xr) = CI.chol_inv(bad), CI.chol_inv_ref(bad)
+        nan_ok, bad_err = True, 0.0
+        for got, ref in ((L, Lr), (torch.tril(X), torch.tril(Xr))):
+            nan = torch.isnan(ref)
+            nan_ok &= bool(nan.any()) and torch.equal(torch.isnan(got), nan)
+            bad_err = max(bad_err, rel(got[~nan], ref[~nan]))
+        ms = cuda_ms(lambda: CI.chol_inv(one), reps=20)
+        plain = cuda_ms(lambda: CI.chol_inv_ref(one), reps=2)
+        lib = cuda_ms(lambda: chol_two_calls(one), reps=20)
+        dev_ms = device_ms(lambda: CI.chol_inv(one))
+        dev_lib = device_ms(lambda: chol_two_calls(one))
+        bd = bound(2.0 / 3.0 * T ** 3, PEAK_FP32,
+                   (T * (T + 1) // 2 + 2 * T * T) * 4)
+        ok = (err <= TOL_K7 and ill_l <= TOL_K7
+              and ill_x <= x_bound and nan_ok and bad_err <= TOL_K7)
+        log(f"K8 one tile T={T}: max|d|/max|ref| {err:.3e}; condition 1e4: "
+            f"L {ill_l:.3e} from the twin, X {ill_x:.3e} from fp64 (twin "
+            f"{twin_x:.3e}, bound {x_bound:.3e}); negative pivot: NaN where "
+            f"the twin's {'yes' if nan_ok else 'NO'}, rest {bad_err:.3e}; "
+            f"kernel {ms:.4f} ms (on the card alone {dev_ms} ms), twin "
+            f"{plain:.3f} ms, bound {bd[0]:.5f} ms ({bd[1]}), cholesky_ex + "
+            f"solve_triangular {lib:.4f} ms (on the card {dev_lib} ms) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K8 at T={T} disagrees with its twin")
+        errs["K8"] = max(errs["K8"], err, ill_l, bad_err)
+        out[T] = (ms, plain, bd, lib, dev_ms, dev_lib)
     return out
 
 
@@ -1476,11 +1585,7 @@ def chol_timed(solver, errs):
     idx = torch.arange(B, device=dev)
     work = tiles.clone()
 
-    def two_calls(t):
-        eye = torch.eye(T, device=dev).expand_as(t)
-        L, _ = torch.linalg.cholesky_ex(t)
-        return torch.linalg.solve_triangular(L, eye, upper=False)
-
+    two_calls = chol_two_calls
     copy_ms = cuda_ms(lambda: work.copy_(tiles))
     ms = cuda_ms(lambda: (work.copy_(tiles),
                           CI.chol_inv_pool(work, idx))) - copy_ms
@@ -1626,7 +1731,7 @@ def ab_harness(solver, dev, errs):
                     f, a, b, d, None, None, dev):
                 out[name, str(upd)[6:], label] = rl_checked(
                     f"{label} {name}", run, ref, steps, pools, upd, T, errs,
-                    key)
+                    key, repeat=key.startswith("K3"))
     del P
     return out
 
@@ -1909,8 +2014,12 @@ def main() -> int:
         if ("registers" in line or "spill" in line or "entry function"
                 in line or line.startswith("---")):
             log(f"  ptxas: {line.strip()}")
-    hmma = sass_count(_build, "ll_gemm_scatter", ("HMMA", "HGMMA"))
-    log(f"K1 SASS: {hmma}")
+    for kname, src in (("K1", "ll_gemm_scatter"),
+                       ("K3", "pipelined_gemm_scatter")):
+        counts = sass_count(_build, src, ("HMMA", "HGMMA"))
+        log(f"{kname} SASS: {counts}")
+        if isinstance(counts, dict) and not counts["HMMA"]:
+            raise AssertionError(f"{kname}: no HMMA in its SASS")
     t0 = time.perf_counter()
     native.get_lib()
     log(f"native host library: {native.status} "
@@ -2015,6 +2124,7 @@ def main() -> int:
     fused, fsolver, k7, k8 = fused_path(
         args.nx, dev, errs, main_num["fact_ms"],
         rl["LLT"]["stream"][1]["fact_ms"])
+    k8_one = k8_tiles(dev, errs)
 
     # 13. the E2 A/B harness (exp_pipe.py); the counts are those of each
     # case's timed runs
@@ -2154,6 +2264,11 @@ def main() -> int:
             log(f"path {kind} right-looking {mode}: " + json.dumps(num))
     for e2, (_, num) in fused.items():
         log(f"path LLT fused-DIAG {e2}: " + json.dumps(num))
+    for T, (ms, plain, bd, lib, dev_ms, dev_lib) in k8_one.items():
+        log(f"K8 one tile T={T}: " + json.dumps(
+            {"ms": ms, "plain_ms": plain, "bound_ms": bd[0],
+             "bound_by": bd[1], "two_library_calls_ms": lib,
+             "device_ms": dev_ms, "two_library_calls_device_ms": dev_lib}))
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

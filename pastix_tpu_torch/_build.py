@@ -26,7 +26,8 @@ _SOURCES = ("ll_gemm_scatter.cu", "sweep.cu", "pipelined_gemm_scatter.cu",
             "tile_factor.cu", "block_gemm_scatter.cu", "slab_gemm_scatter.cu",
             "chol_inv.cu", "segment_gemm_scatter.cu",
             "cache_gemm_scatter.cu", "dma_probe.cu")
-_HEADERS = ("common.cuh", "segment_gemm.cuh", "mma_tile.cuh")
+_HEADERS = ("common.cuh", "segment_gemm.cuh", "mma_tile.cuh",
+            "seg_mma.cuh")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -113,7 +114,8 @@ def get_lib() -> ctypes.CDLL:
     lib.pastix_ll_gemm_scatter.restype = I
     lib.pastix_sweep_run.argtypes = [P] * 10 + [L, L, I, I, I, I, I, P]
     lib.pastix_sweep_run.restype = I
-    lib.pastix_pipelined_gemm_scatter.argtypes = [P] * 9 + [L, I, I, I, P]
+    lib.pastix_pipelined_gemm_scatter.argtypes = [P] * 15 + [L, L, I, I, I,
+                                                              I, P]
     lib.pastix_pipelined_gemm_scatter.restype = I
     lib.pastix_block_gemm_scatter.argtypes = [P] * 7 + [L, I, I, P]
     lib.pastix_block_gemm_scatter.restype = I

@@ -6,10 +6,13 @@
 // Operands sit in shared memory k-contiguous: a as [m][k], b as [n][k]
 // (both tiles of an E2 pair are read as stored: C = a . b^T), rows
 // padded to 40 elements so that the eight rows an ldmatrix (bf16) or a
-// float2 load (fp32) touches fall into distinct banks.  b is bf16; a is
-// bf16, or fp32 rounded to bf16 as its fragment is loaded (cvt.rn, after
-// the optional scaling of its columns), which is where the plain twin
-// rounds it.
+// float2 load (fp32) touches fall into distinct banks.  Either operand is
+// bf16 (ldmatrix), or fp32 rounded to bf16 (cvt.rn) as its fragment is
+// loaded, which is where the plain twins round it.  a's columns may be
+// scaled by the pivots dk first: an fp32 a is scaled and rounded once,
+// round(a d); a bf16 a, already rounded when it was stored, is widened,
+// scaled and rounded again, round(round(a) d), so it cannot go through
+// ldmatrix as stored.
 #pragma once
 
 #include "common.cuh"
@@ -64,18 +67,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// a fragment of rows m0..m0+15, k kk..kk+15 (the m16n8k16 A layout)
+// two consecutive k elements of row r of an operand slice as fp32
+template <bool F32>
+__device__ __forceinline__ float2 load_pair(const void* s, int r, int k) {
+  if constexpr (F32) {
+    return *(const float2*)((const float*)s + r * LD + k);
+  } else {
+    return __bfloat1622float2(
+        *(const __nv_bfloat162*)((const __nv_bfloat16*)s + r * LD + k));
+  }
+}
+
+// a fragment of rows m0..m0+15, k kk..kk+15 (the m16n8k16 A layout); an
+// fp32 a, or any a with dk != nullptr, is built from fp32 values (scaled
+// by dk, then rounded), a bf16 a without dk goes through ldmatrix
 template <bool F32>
 __device__ __forceinline__ void load_a(uint32_t a[4], const void* s, int m0,
                                        int kk, const float* dk) {
   const int lane = threadIdx.x & 31;
-  if constexpr (F32) {
-    const float* f = (const float*)s;
+  if (F32 || dk != nullptr) {
     const int g = lane >> 2, c = (lane & 3) * 2;
-    float2 x0 = *(const float2*)(f + (m0 + g) * LD + kk + c);
-    float2 x1 = *(const float2*)(f + (m0 + g + 8) * LD + kk + c);
-    float2 x2 = *(const float2*)(f + (m0 + g) * LD + kk + c + 8);
-    float2 x3 = *(const float2*)(f + (m0 + g + 8) * LD + kk + c + 8);
+    float2 x0 = load_pair<F32>(s, m0 + g, kk + c);
+    float2 x1 = load_pair<F32>(s, m0 + g + 8, kk + c);
+    float2 x2 = load_pair<F32>(s, m0 + g, kk + c + 8);
+    float2 x3 = load_pair<F32>(s, m0 + g + 8, kk + c + 8);
     if (dk != nullptr) {  // a's columns scaled by the pivots, then rounded
       const float2 s0 = *(const float2*)(dk + kk + c);
       const float2 s1 = *(const float2*)(dk + kk + c + 8);
@@ -92,20 +107,32 @@ __device__ __forceinline__ void load_a(uint32_t a[4], const void* s, int m0,
   }
 }
 
-// b fragments of two n8 tiles, rows n0..n0+15 of a bf16 b, k kk..kk+15:
-// b[0..1] for n0..n0+7, b[2..3] for n0+8..n0+15
+// b fragments of two n8 tiles, rows n0..n0+15 of b, k kk..kk+15:
+// b[0..1] for n0..n0+7, b[2..3] for n0+8..n0+15; an fp32 b is rounded
+template <bool F32>
 __device__ __forceinline__ void load_b2(uint32_t b[4], const void* s, int n0,
                                         int kk) {
   const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* h = (const __nv_bfloat16*)s;
-  ldmatrix_x4(b, h + (n0 + (lane >> 4) * 8 + (lane & 7)) * LD + kk +
-                     ((lane >> 3) & 1) * 8);
+  if constexpr (F32) {
+    const int g = lane >> 2, c = (lane & 3) * 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 x0 = load_pair<true>(s, n0 + 8 * h + g, kk + c);
+      const float2 x1 = load_pair<true>(s, n0 + 8 * h + g, kk + c + 8);
+      b[2 * h] = pack_bf16(x0.x, x0.y);
+      b[2 * h + 1] = pack_bf16(x1.x, x1.y);
+    }
+  } else {
+    const __nv_bfloat16* h = (const __nv_bfloat16*)s;
+    ldmatrix_x4(b, h + (n0 + (lane >> 4) * 8 + (lane & 7)) * LD + kk +
+                       ((lane >> 3) & 1) * 8);
+  }
 }
 
 // acc[mi][ni] += a(m0 + 16 mi) . b(n0 + 8 ni)^T over one 16-deep k step
 // of a stage; row groups with live[mi] false issue no mma (the warp
 // decides uniformly)
-template <int MI, int NI, bool A_F32>
+template <int MI, int NI, bool A_F32, bool B_F32>
 __device__ __forceinline__ void warp_mma_k16(float acc[MI][NI][4],
                                              const void* sa, const void* sb,
                                              int m0, int n0, int kk,
@@ -118,7 +145,7 @@ __device__ __forceinline__ void warp_mma_k16(float acc[MI][NI][4],
 #pragma unroll
   for (int nj = 0; nj < NI; nj += 2) {
     uint32_t b[4];
-    load_b2(b, sb, n0 + 8 * nj, kk);
+    load_b2<B_F32>(b, sb, n0 + 8 * nj, kk);
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi) {
       if (!live[mi]) continue;

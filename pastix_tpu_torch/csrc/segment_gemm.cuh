@@ -1,5 +1,7 @@
-// The per-pair product of the segment-walking E2 kernels: K3
-// (pipelined_gemm_scatter.cu) and K9/K10 (segment_gemm_scatter.cu).
+// The per-pair product of the segment-walking E2 kernels on the CUDA
+// cores: K9/K10 (segment_gemm_scatter.cu, fp32 and bf16 updates) and K3's
+// fp32 updates (pipelined_gemm_scatter.cu; K3's bf16 updates run on the
+// tensor cores, seg_mma.cuh).
 //
 // A CTA of NT = (BM / 4)^2 threads owns one BM x BM block (rows r0.., cols
 // c0..) of a T x T dst tile and keeps it in registers, 4 x 4 a thread,
@@ -8,6 +10,12 @@
 // before its first store.  Operands are tiles of OP (fp32, or bf16 already
 // rounded); an fp32 tile is rounded to bf16 on load when ROUND; a's column
 // k is scaled by dk[k] first when SCALED (common.cuh's load_scaled).
+//
+// What bounds it: the products run on the fp32 CUDA cores (67 TFLOP/s at
+// best, 4 x 4 a thread), and each slice is loaded synchronously, two
+// barriers a slice with no load in flight during the products: K9 and
+// K10 run 9-11x above their byte bounds on an H100 (PERF.md §6).  Moving
+// them onto seg_mma.cuh, as K3's bf16 path did, is queued work.
 #pragma once
 
 #include "common.cuh"

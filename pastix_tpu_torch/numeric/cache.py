@@ -34,8 +34,10 @@ import torch
 from pastix_tpu_torch import _build
 from pastix_tpu_torch.numeric.fused import _segments
 from pastix_tpu_torch.numeric.kernels import check_pool
+from pastix_tpu_torch.numeric.leftlook import piece_ctas
 from pastix_tpu_torch.numeric.pipelined import (
-    _F_FIRST, _F_LAST, _F_PAR, _F_VALID, _F_WRWAIT, _REF_BATCH, pairs_ref,
+    _F_FIRST, _F_LAST, _F_PAR, _F_VALID, _F_WRWAIT, _REF_BATCH,
+    launch_chunks, pairs_ref, piece_fields,
 )
 
 # tile sizes K11 and K12 are built for
@@ -153,10 +155,20 @@ class CacheChunk:
     pos_a: torch.Tensor  # cache slot of each pair's a
     pos_b: torch.Tensor  # cache slot of each pair's b
     n_pairs: int  # real pairs
+    # K11's pieces, as in pipelined.PipeChunk (K12 has none)
+    piece_ptr: torch.Tensor = None
+    piece_seg: torch.Tensor = None
+    seg_piece_ptr: torch.Tensor = None
+    piece_slot: torch.Tensor = None
+    nslot: int = 0
 
     @property
     def nseg(self) -> int:
         return self.seg_dst.numel()
+
+    @property
+    def npiece(self) -> int:
+        return self.piece_seg.numel()
 
 
 @dataclasses.dataclass
@@ -179,11 +191,14 @@ def vcache_plan(schedule, device) -> CachePlan:
     """K11's tables of a ``build_pipeline_schedule(..., ext_tiles=)``
     result, uploaded to ``device`` once: :func:`vcache_tables` (added to
     the schedule's chunks in place, as the reference does), then each
-    chunk's valid pairs cut into dst segments."""
+    chunk's valid pairs cut into dst segments, and those into K3's pieces
+    for ``device``'s card (``pipelined.piece_fields``)."""
     if any("ga_c" not in t or "uniq_a" in t for t in schedule):
         raise ValueError("gemm_scatter_vcache takes a schedule built with "
                          "ext_tiles (positions in the panel stream)")
     ct = vcache_tables(schedule)
+    ctas = piece_ctas(device)
+    tens = lambda a: _tens(a, device)
     chunks = []
     for t in schedule:
         valid = (np.asarray(t["flags"]) & _F_VALID) != 0
@@ -192,12 +207,12 @@ def vcache_plan(schedule, device) -> CachePlan:
         gd = np.asarray(t["gd"])[valid]
         flags = np.asarray(t["flags"])[valid]
         starts = _segments(gd, flags & _F_FIRST, flags & _F_LAST)
+        seg_ptr = np.r_[starts, gd.size]
         chunks.append(CacheChunk(
-            cu=_tens(t["cu"], device), seg_ptr=_tens(np.r_[starts, gd.size],
-                                                     device),
-            seg_dst=_tens(gd[starts], device),
-            pos_a=_tens(t["ga_v"][valid], device),
-            pos_b=_tens(t["gb_v"][valid], device), n_pairs=int(gd.size)))
+            cu=tens(t["cu"]), seg_ptr=tens(seg_ptr),
+            seg_dst=tens(gd[starts]), pos_a=tens(t["ga_v"][valid]),
+            pos_b=tens(t["gb_v"][valid]), n_pairs=int(gd.size),
+            **piece_fields(seg_ptr, gd.size, ctas, tens)))
     return CachePlan(chunks, ct)
 
 
@@ -272,21 +287,22 @@ def gemm_scatter_vcache(pool: torch.Tensor, xab: torch.Tensor,
     (filled from the panel stream ``xab``), products accumulated in fp32.
 
     A pool on a CUDA device goes through K11: per chunk, the buffer is
-    filled and K3's kernel (``csrc/pipelined_gemm_scatter.cu``) runs once
-    with both operand arrays the buffer, in order on the current stream;
-    a pool on the CPU through :func:`gemm_scatter_vcache_ref`."""
+    filled and K3's kernel (``csrc/pipelined_gemm_scatter.cu``, its bf16
+    tensor-core body over the chunk's pieces) runs once with both operand
+    arrays the buffer, in order on the current stream
+    (``pipelined.launch_chunks``); a pool on the CPU through
+    :func:`gemm_scatter_vcache_ref`."""
     T = _check(pool, xab, plan)
     if pool.device.type == "cpu":
         return gemm_scatter_vcache_ref(pool, xab, plan)
-    lib, stream, buf = _cuda_setup(pool, xab, plan, T)
-    for c in plan.chunks:
+    _, _, buf = _cuda_setup(pool, xab, plan, T)
+
+    def operands(c):
         _fill(buf, xab, c)
-        err = lib.pastix_pipelined_gemm_scatter(
-            pool.data_ptr(), buf.data_ptr(), buf.data_ptr(),
-            c.seg_ptr.data_ptr(), c.seg_dst.data_ptr(), c.pos_a.data_ptr(),
-            c.pos_b.data_ptr(), None, None, c.nseg, T, 1, 1, stream)
-        _build.check(err, "gemm_scatter_vcache")
-        gemm_scatter_vcache.launches += 1
+        return buf, buf, c.pos_a, c.pos_b
+
+    launch_chunks(pool, plan.chunks, operands, True, None,
+                  gemm_scatter_vcache)
     return pool
 
 

@@ -12,7 +12,10 @@ Cholesky and a triangular solve.  Its Pallas kernels:
 
 Each launches the hand-written CUDA kernel (``csrc/chol_inv.cu``) for
 tensors on a CUDA device and its plain twin (``kernels.chol_inv_batch``)
-for tensors on the CPU.
+for tensors on the CPU.  The kernel takes a tile a CTA in 32 x 32 block
+steps: one warp factors and inverts the diagonal block in registers, the
+other warps form the panel, the trailing update and X's off-diagonal
+blocks (288 threads at T = 128, 96 at 64, 32 at 32).
 """
 
 from __future__ import annotations
@@ -55,8 +58,8 @@ def chol_inv_pool(pool: torch.Tensor, diag) -> torch.Tensor:
     entries must be distinct.  A tile that is not positive definite turns
     NaN.
 
-    On a CUDA device: one launch of K7 (T in {32, 64, 128}; another T
-    raises).  On the CPU: :func:`chol_inv_pool_ref`."""
+    On a CUDA device: one launch of K7, a CTA a tile (T in {32, 64,
+    128}; another T raises).  On the CPU: :func:`chol_inv_pool_ref`."""
     check_pool(pool)
     diag = _index(diag, pool.device)
     if pool.device.type == "cpu":
@@ -110,8 +113,8 @@ def chol_inv(tiles: torch.Tensor):
     with zeros above.  The tiles are full symmetric, as the reference's
     B5 takes them; the lower triangle is what is read.
 
-    On a CUDA device: one launch of K8 (T in {32, 64, 128}).  On the CPU:
-    :func:`chol_inv_ref`."""
+    On a CUDA device: one launch of K8, a CTA a tile (T in {32, 64,
+    128}).  On the CPU: :func:`chol_inv_ref`."""
     _check_tiles(tiles)
     if tiles.device.type == "cpu":
         return chol_inv_ref(tiles)

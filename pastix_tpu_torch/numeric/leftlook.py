@@ -339,9 +339,9 @@ class LLChunk:
 
 
 def piece_ctas(device) -> int:
-    """The CTAs K1 runs at once on ``device``'s card: two on each SM (its
-    tensor-core kernel's occupancy); 0 on the CPU, where no kernel reads
-    the pieces."""
+    """The CTAs K1 and K3 run at once on ``device``'s card: two on each SM
+    (the occupancy of their tensor-core body, ``csrc/seg_mma.cuh``); 0 on
+    the CPU, where no kernel reads the pieces."""
     device = torch.device(device)
     if device.type != "cuda":
         return 0
@@ -371,6 +371,18 @@ def ll_pieces(seg_ptr, n_pairs, ctas):
     slot[cut] = np.arange(int(cut.sum()))
     return (np.r_[starts, n_pairs], piece_seg, np.r_[0, np.cumsum(npc)],
             slot, int(cut.sum()))
+
+
+def piece_buffers(plan, T, device):
+    """(scratch, count) for a launch over ``plan``'s chunks of pieces: the
+    partial sums of cut segments (the most slots of a chunk, T x T fp32
+    each) and one arrival counter per segment and column block, zero
+    (the kernel leaves them zero)."""
+    scratch = torch.empty(max((c.nslot for c in plan), default=0) * T * T,
+                          dtype=torch.float32, device=device)
+    count = torch.zeros(2 * max((c.nseg for c in plan), default=0),
+                        dtype=torch.int32, device=device)
+    return scratch, count
 
 
 def ll_plan(schedule, device) -> list:
@@ -457,12 +469,7 @@ def gemm_scatter_ll(pool: torch.Tensor, plan, update_dtype=torch.bfloat16, *,
         cache = torch.empty((nu_max, T, T), dtype=torch.bfloat16,
                             device=pool.device)
         sms = piece_ctas(pool.device) // 2
-        # the partial sums of cut segments, and their arrival counters
-        # (the kernel leaves them zero)
-        scratch = torch.empty(max((c.nslot for c in plan), default=0) * T * T,
-                              dtype=torch.float32, device=pool.device)
-        count = torch.zeros(2 * max((c.nseg for c in plan), default=0),
-                            dtype=torch.int32, device=pool.device)
+        scratch, count = piece_buffers(plan, T, pool.device)
     for c in plan:
         # the tensor-core kernel covers a T x T dst tile a CTA, or a
         # 128 x 64 half when whole tiles would leave SMs without a CTA

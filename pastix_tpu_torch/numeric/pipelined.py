@@ -14,7 +14,10 @@ plain twin ``gemm_scatter_pipelined_ref`` for a pool on the CPU, in the
 plain, the scaled (``d``, LDLᵗ) and the cross-pool (``src_pool``, LU)
 variants, with operands read from the pools or from operand arrays: the
 panel TRSM's bf16 stream (``xab``), per-chunk gathers of the distinct
-operand tiles (``compact``) or stacked (a, b) pairs (``ab_pack``).
+operand tiles (``compact``) or stacked (a, b) pairs (``ab_pack``).  With
+bf16 updates the kernel runs K1's tensor-core body over pieces of the dst
+segments, which :func:`pipeline_plan` cuts with
+``leftlook.ll_pieces``; fp32 updates keep a CTA per segment.
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ import torch
 from pastix_tpu_torch import _build
 from pastix_tpu_torch.numeric.kernels import (
     check_pool, check_variant, is_bf16, round_to,
+)
+from pastix_tpu_torch.numeric.leftlook import (
+    ll_pieces, piece_buffers, piece_ctas,
 )
 
 # pairs per batched product of the plain twin (bounds its transients)
@@ -175,18 +181,45 @@ class PipeChunk:
     uniq_b: torch.Tensor = None
     cpos_a: torch.Tensor = None
     cpos_b: torch.Tensor = None
+    # the bf16 kernel's pieces (leftlook.ll_pieces): piece p runs the
+    # pairs piece_ptr[p]..piece_ptr[p+1] of segment piece_seg[p]; segment
+    # s has the pieces seg_piece_ptr[s]..seg_piece_ptr[s+1]; piece_slot
+    # numbers the pieces of segments cut in more than one (else -1)
+    piece_ptr: torch.Tensor = None
+    piece_seg: torch.Tensor = None
+    seg_piece_ptr: torch.Tensor = None
+    piece_slot: torch.Tensor = None
+    nslot: int = 0
 
     @property
     def nseg(self) -> int:
         return self.seg_dst.numel()
 
+    @property
+    def npiece(self) -> int:
+        return self.piece_seg.numel()
+
+
+def piece_fields(seg_ptr, n_pairs, ctas, tens) -> dict:
+    """The piece fields of a chunk (:class:`PipeChunk`, and K11's
+    ``cache.CacheChunk``) with dst segments ``seg_ptr`` (host array): its
+    segments cut by ``leftlook.ll_pieces`` for ``ctas`` CTAs at once,
+    each table made a device tensor by ``tens``."""
+    piece_ptr, piece_seg, seg_piece_ptr, slot, nslot = ll_pieces(
+        seg_ptr, n_pairs, ctas)
+    return {"piece_ptr": tens(piece_ptr), "piece_seg": tens(piece_seg),
+            "seg_piece_ptr": tens(seg_piece_ptr), "piece_slot": tens(slot),
+            "nslot": nslot}
+
 
 def pipeline_plan(schedule, device) -> list:
     """Kernel tables (:class:`PipeChunk`) of a
-    :func:`build_pipeline_schedule` result, uploaded to ``device``.
+    :func:`build_pipeline_schedule` result, uploaded to ``device``, the
+    pieces cut for its card (``leftlook.piece_ctas``).
 
     A dst segment cut by a chunk boundary lands in two chunks; the
     chunks run in order, so the second reads what the first wrote."""
+    ctas = piece_ctas(device)
     out = []
     for t in schedule:
         valid = (np.asarray(t["flags"]) & _F_VALID) != 0
@@ -204,9 +237,10 @@ def pipeline_plan(schedule, device) -> list:
         # so its distinct tiles are the valid pairs' own)
         uniq_a = np.unique(ga) if ext else np.asarray(t["uniq_a"])
         uniq_b = np.unique(gb) if ext else np.asarray(t["uniq_b"])
+        seg_ptr = np.r_[starts, gd.size]
         out.append(PipeChunk(
             n_pairs=int(gd.size),
-            seg_ptr=tens(np.r_[starts, gd.size]),
+            seg_ptr=tens(seg_ptr),
             seg_dst=tens(gd[starts]),
             pair_a=tens(ga),
             pair_b=tens(gb),
@@ -217,6 +251,7 @@ def pipeline_plan(schedule, device) -> list:
             uniq_b=tens(uniq_b),
             cpos_a=tens(np.searchsorted(uniq_a, ga)),
             cpos_b=tens(np.searchsorted(uniq_b, gb)),
+            **piece_fields(seg_ptr, gd.size, ctas, tens),
         ))
     return out
 
@@ -231,7 +266,9 @@ def _operands(pool, src, c, update_dtype, xab, compact, ab_pack):
     - ``compact``: the chunk's distinct a tiles of ``pool`` and b tiles of
       ``src``, gathered once and cast to the update dtype;
     - ``ab_pack``: every pair's (a, b) stacked and cast, a at 2i and b at
-      2i + 1."""
+      2i + 1 (gathered from the chunk's distinct tiles, each cast once:
+      the same array as casting every pair's fp32 tiles, with fewer
+      bytes moved)."""
     cast = (lambda x: x.to(torch.bfloat16)) if is_bf16(update_dtype) else (
         lambda x: x)
     if xab is not None:
@@ -243,9 +280,10 @@ def _operands(pool, src, c, update_dtype, xab, compact, ab_pack):
         return (cast(pool[c.uniq_a]), cast(src[c.uniq_b]), c.cpos_a,
                 c.cpos_b)
     if ab_pack:
-        AB = cast(torch.stack([pool[c.pair_a], src[c.pair_b]], dim=1))
+        C = torch.cat([cast(pool[c.uniq_a]), cast(src[c.uniq_b])])
+        AB = C[torch.stack([c.cpos_a, c.cpos_b + c.uniq_a.numel()],
+                           dim=1).view(-1)]
         pos = 2 * torch.arange(c.n_pairs, device=pool.device)
-        AB = AB.view(-1, *AB.shape[2:])
         return AB, AB, pos, pos + 1
     return pool, src, c.pair_a, c.pair_b
 
@@ -282,7 +320,7 @@ def gemm_scatter_pipelined(pool: torch.Tensor, plan, update_dtype=None, *,
     into three bf16 passes (its TPU has no fp32 matrix unit); the kernel
     multiplies them in fp32 instead (ROADMAP.md C).  A pool on a CUDA
     device goes through the kernel K3, one launch per chunk, in order on
-    the current stream; a pool on the CPU through
+    the current stream (:func:`launch_chunks`); a pool on the CPU through
     :func:`gemm_scatter_pipelined_ref`."""
     check_pool(pool)
     check_variant(pool, d, src_pool, plan)
@@ -295,25 +333,50 @@ def gemm_scatter_pipelined(pool: torch.Tensor, plan, update_dtype=None, *,
             compact=compact, ab_pack=ab_pack)
     if pool.device.type != "cuda":
         raise ValueError(f"unsupported device {pool.device}")
+    src = pool if src_pool is None else src_pool
+    launch_chunks(pool, plan, lambda c: _operands(
+        pool, src, c, update_dtype, xab, compact, ab_pack), bf16, d,
+        gemm_scatter_pipelined)
+    return pool
+
+
+def launch_chunks(pool, chunks, operands, bf16, d, wrapper) -> None:
+    """K3's launches over ``chunks`` (:class:`PipeChunk`, or K11's
+    ``cache.CacheChunk``), one a chunk, in order on the current stream,
+    each counted in ``wrapper.launches``.  ``operands(c)`` gives chunk
+    c's (Xa, Xb, pos_a, pos_b).  With bf16 updates a CTA takes a piece
+    and the whole dst tile, or a 128 x 64 half at T = 128 when both
+    operands are fp32 (a stage of whole fp32 tiles would leave one CTA an
+    SM) or the chunk has fewer pieces than the card has SMs."""
     lib = _build.get_lib()
     stream = _build.stream_ptr(pool.device)
     T = pool.shape[1]
-    src = pool if src_pool is None else src_pool
-    for c in plan:
-        Xa, Xb, pos_a, pos_b = _operands(pool, src, c, update_dtype, xab,
-                                         compact, ab_pack)
+    if bf16:
+        sms = piece_ctas(pool.device) // 2
+        scratch, count = piece_buffers(chunks, T, pool.device)
+    for c in chunks:
+        Xa, Xb, pos_a, pos_b = operands(c)
         if Xa.dtype != Xb.dtype:
             raise ValueError("the a and b operand arrays differ in dtype")
+        if Xa.data_ptr() % 16 or Xb.data_ptr() % 16:
+            raise ValueError("the operand arrays must start on 16 bytes "
+                             "(the kernel copies 16 bytes at a time)")
+        f32 = Xa.dtype == torch.float32
+        half = bf16 and T == 128 and (f32 or c.npiece < sms)
         err = lib.pastix_pipelined_gemm_scatter(
             pool.data_ptr(), Xa.data_ptr(), Xb.data_ptr(),
             c.seg_ptr.data_ptr(), c.seg_dst.data_ptr(), pos_a.data_ptr(),
             pos_b.data_ptr(), None if d is None else d.data_ptr(),
             None if d is None else c.pair_k.data_ptr(),
-            c.nseg, T, int(bf16), int(Xa.dtype == torch.bfloat16), stream,
+            c.piece_ptr.data_ptr(), c.piece_seg.data_ptr(),
+            c.seg_piece_ptr.data_ptr(), c.piece_slot.data_ptr(),
+            scratch.data_ptr() if bf16 else None,
+            count.data_ptr() if bf16 else None,
+            c.nseg, c.npiece, T, int(bf16), int(not f32),
+            T // 2 if half else T, stream,
         )
-        _build.check(err, "gemm_scatter_pipelined")
-        gemm_scatter_pipelined.launches += 1
-    return pool
+        _build.check(err, wrapper.__name__)
+        wrapper.launches += 1
 
 
 gemm_scatter_pipelined.launches = 0  # K3 launches (one per chunk)

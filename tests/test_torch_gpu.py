@@ -199,32 +199,73 @@ def _schur_solver(T, dev, nx=10, upd="bfloat16"):
     return A, s
 
 
+def _planted_k3(T, dev, variant, seed=0):
+    """A K3 pool and plan on random tiles: 100 dst tiles of 3 pairs
+    beside one of 200, in one chunk, so the long segment is cut into
+    pieces (the last adds their sums).  ``variant``: ``"plain"``, ``"d"``
+    (pivots d and each pair's column gk) or ``"src_pool"`` (a second
+    pool).  Returns (pool, plan, kw)."""
+    rng = np.random.default_rng(seed)
+    nsrc, ndst = 64, 101
+    tiles = lambda n: torch.tensor(rng.standard_normal((n, T, T)),
+                                   dtype=torch.float32, device=dev)
+    pool = tiles(nsrc + ndst)
+    gd = np.r_[np.repeat(np.arange(nsrc, nsrc + ndst - 1), 3),
+               np.full(200, nsrc + ndst - 1)]
+    ga, gb = (rng.integers(0, nsrc, gd.size) for _ in range(2))
+    gk = rng.integers(0, 40, gd.size) if variant == "d" else None
+    kw = {}
+    if variant == "d":
+        kw["d"] = torch.tensor(rng.uniform(0.5, 2.0, (40, T)),
+                               dtype=torch.float32, device=dev)
+    elif variant == "src_pool":
+        kw["src_pool"] = tiles(nsrc + ndst)
+    plan = PL.pipeline_plan(PL.build_pipeline_schedule(
+        ga, gb, gd, gk=gk, chunk=gd.size), dev)
+    assert len(plan) == 1 and plan[0].nseg == ndst and plan[0].nslot > 1
+    return pool, plan, kw
+
+
+def _k3_twice(pool, plan, upd, **kw):
+    """K3 on a copy of ``pool``, its launches counted, and again on
+    another copy: the two runs must be bit-identical.  Returns the
+    first."""
+    before = PL.gemm_scatter_pipelined.launches
+    got = PL.gemm_scatter_pipelined(pool.clone(), plan, upd, **kw)
+    assert PL.gemm_scatter_pipelined.launches == before + len(plan)
+    assert torch.equal(got, PL.gemm_scatter_pipelined(pool.clone(), plan,
+                                                      upd, **kw))
+    return got
+
+
 @pytest.mark.parametrize("T", [32, 64, 128])
 @pytest.mark.parametrize("upd", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
-def test_k3_matches_twin(cuda, T, upd):
-    """Every Schur-residue update of the factored pool in one list (each
-    Schur tile then has many pairs), cut into chunks of 7 pairs so that
-    dst segments straddle chunk boundaries."""
-    _, s = _schur_solver(T, cuda)
-    s.factorize()
-    lay = s.layout
-    reduced, _, _ = LL.regroup_left(lay.levels, lay.blk_col, None)
-    ga, gb, gd = (np.concatenate([getattr(r, f) for r in reduced])
-                  for f in ("gemm_a", "gemm_b", "gemm_d"))
-    sched = PL.build_pipeline_schedule(ga, gb, gd, group=2, chunk=7)
-    plan = PL.pipeline_plan(sched, cuda)
-    firsts = [int(c.seg_dst[0]) for c in plan[1:]]
-    lasts = [int(c.seg_dst[-1]) for c in plan[:-1]]
-    assert any(a == b for a, b in zip(firsts, lasts)), "no straddling dst"
-    pool = s.factors.pool
-    before = PL.gemm_scatter_pipelined.launches
-    got = PL.gemm_scatter_pipelined(pool.clone(), plan, upd)
-    assert PL.gemm_scatter_pipelined.launches == before + len(plan)
-    ref = PL.gemm_scatter_pipelined_ref(pool.clone(), plan, upd)
-    touched = torch.cat([c.seg_dst for c in plan]).unique()
-    scale = float(ref[touched].abs().max())
-    assert float((got - ref).abs().max()) <= 1e-4 * scale
+@pytest.mark.parametrize("case", ["schur", "planted"])
+def test_k3_matches_twin(cuda, T, upd, case):
+    """``schur``: every Schur-residue update of the factored pool in one
+    list (each Schur tile then has many pairs), cut into chunks of 7
+    pairs so that dst segments straddle chunk boundaries; ``planted``: a
+    segment of 200 pairs beside segments of 3 (:func:`_planted_k3`).
+    Two runs bit-identical."""
+    if case == "planted":
+        pool, plan, _ = _planted_k3(T, cuda, "plain")
+    else:
+        _, s = _schur_solver(T, cuda)
+        s.factorize()
+        lay = s.layout
+        reduced, _, _ = LL.regroup_left(lay.levels, lay.blk_col, None)
+        ga, gb, gd = (np.concatenate([getattr(r, f) for r in reduced])
+                      for f in ("gemm_a", "gemm_b", "gemm_d"))
+        sched = PL.build_pipeline_schedule(ga, gb, gd, group=2, chunk=7)
+        plan = PL.pipeline_plan(sched, cuda)
+        firsts = [int(c.seg_dst[0]) for c in plan[1:]]
+        lasts = [int(c.seg_dst[-1]) for c in plan[:-1]]
+        assert any(a == b for a, b in zip(firsts, lasts)), "no straddling dst"
+        pool = s.factors.pool
+    got = _k3_twice(pool, plan, upd)
+    _close_e2(got, PL.gemm_scatter_pipelined_ref(pool.clone(), plan, upd),
+              plan)
 
 
 @pytest.mark.parametrize("upd", [None, "bfloat16"])
@@ -315,7 +356,9 @@ def test_k1_variants_match_twin(cuda, T, mode, upd, kind):
                          ids=["d", "src_pool"])
 def test_k3_variants_match_twin(cuda, T, upd, kind):
     """K3 scaled and cross-pool on every Schur-residue update of a
-    factored Schur solver, in chunks of 7 pairs."""
+    factored Schur solver, in chunks of 7 pairs, and on a planted
+    200-pair segment beside segments of 3 (:func:`_planted_k3`); two
+    runs bit-identical."""
     _, s = _kind_solver(kind, T, cuda, schur=True)
     s.factorize()
     lay, f = s.layout, s.factors
@@ -328,14 +371,14 @@ def test_k3_variants_match_twin(cuda, T, upd, kind):
     else:
         runs = [(f.pool, ga, gb, gd, None, {"src_pool": f.pool_u}),
                 (f.pool_u, ga[nd], gb[nd], gd[nd], None, {"src_pool": f.pool})]
-    for pool, a, b, dd, k, kw in runs:
-        if not a.size:  # no off-diagonal Schur target at this size
-            continue
-        plan = PL.pipeline_plan(PL.build_pipeline_schedule(
-            a, b, dd, gk=k, group=2, chunk=7), cuda)
-        before = PL.gemm_scatter_pipelined.launches
-        got = PL.gemm_scatter_pipelined(pool.clone(), plan, upd, **kw)
-        assert PL.gemm_scatter_pipelined.launches == before + len(plan)
+    plans = [(pool, PL.pipeline_plan(PL.build_pipeline_schedule(
+        a, b, dd, gk=k, group=2, chunk=7), cuda), kw)
+        for pool, a, b, dd, k, kw in runs
+        if a.size]  # none when no off-diagonal Schur target at this size
+    plans.append(_planted_k3(T, cuda, "d" if kind == Factorization.LDLT
+                             else "src_pool"))
+    for pool, plan, kw in plans:
+        got = _k3_twice(pool, plan, upd, **kw)
         _close_e2(got, PL.gemm_scatter_pipelined_ref(pool.clone(), plan, upd,
                                                      **kw), plan)
 
@@ -472,7 +515,9 @@ def _close_dst(got, ref, dst):
 def test_k3_operand_arrays_match_twin(cuda, T, upd, form, kind):
     """K3 reading its operands from arrays: the panel stream of the
     busiest level (xab; LU the (L, Uᵗ) pair), per-chunk gathers
-    (compact) or stacked pairs (ab_pack), in chunks of 7 pairs."""
+    (compact) or stacked pairs (ab_pack), in chunks of 7 pairs; with
+    ``d`` and bf16 arrays a is round(round(a) d).  Two runs
+    bit-identical."""
     s, lv = _rl_level(T, cuda, kind)
     f = s.factors
     gk = lv.gemm_k if kind == Factorization.LDLT else None
@@ -489,9 +534,7 @@ def test_k3_operand_arrays_match_twin(cuda, T, upd, form, kind):
                      if kind == Factorization.LU else xl)
     else:
         kw[form] = True
-    before = PL.gemm_scatter_pipelined.launches
-    got = PL.gemm_scatter_pipelined(f.pool.clone(), plan, upd, **kw)
-    assert PL.gemm_scatter_pipelined.launches == before + len(plan)
+    got = _k3_twice(f.pool, plan, upd, **kw)
     ref = PL.gemm_scatter_pipelined_ref(f.pool.clone(), plan, upd, **kw)
     _close_e2(got, ref, plan)
 
@@ -577,15 +620,63 @@ def test_k7_matches_twin(cuda, T):
     assert torch.equal(got[rest], pool[rest])
 
 
+def _ill_tile(T, dev, cond=1e4, seed=2):
+    """One symmetric positive definite tile of condition ``cond``: a
+    random orthogonal basis with eigenvalues from 1 down to 1/cond,
+    evenly in log."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((T, T)))
+    M = (Q * np.logspace(0, -np.log10(cond), T)) @ Q.T
+    return torch.tensor((M + M.T)[None] / 2, dtype=torch.float32, device=dev)
+
+
+def _inverse_error(X, tiles):
+    """(max|X - X64| / max|X64|, T u cond(L64)): X's error against the
+    fp64 inverse X64 of the fp64 Cholesky factor L64 of the same fp32
+    tile, and the textbook bound on it for triangular inversion in fp32
+    (u = 2^-24; Higham, Accuracy and Stability of Numerical Algorithms,
+    ch. 14)."""
+    M = tiles[0].double().cpu()
+    L64 = torch.linalg.cholesky(M)
+    X64 = torch.linalg.inv(L64)
+    err = float((X[0].double().cpu() - X64).abs().max() / X64.abs().max())
+    return err, M.shape[0] * 2.0 ** -24 * float(torch.linalg.cond(L64))
+
+
 @pytest.mark.parametrize("T", [32, 64, 128])
-def test_k8_matches_twin(cuda, T):
-    S = _spd_tiles(7, T, cuda, seed=1)
+@pytest.mark.parametrize("case", ["batch", "one", "ill", "not_spd"])
+def test_k8_matches_twin(cuda, T, case):
+    """``batch``: 7 SPD tiles; ``one``: one tile (the dense tail's call);
+    ``ill``: one tile of condition 1e4: L against the twin at 1e-5, and
+    X against the fp64 inverse within the textbook bound T u cond(L)
+    (the twin's own X is 1.4e-5 to 4.9e-5 off it there: fp32 holds such
+    an inverse no closer, so two summation orders differ by more than
+    1e-5); ``not_spd``: a negative pivot at row 70 % T: NaN exactly where
+    the twin has it (L's columns and X's rows from the pivot on, lower
+    triangles), the rest within 1e-5, zeros above the diagonals."""
+    if case == "ill":
+        S = _ill_tile(T, cuda)
+    else:
+        S = _spd_tiles(7 if case == "batch" else 1, T, cuda, seed=1)
+    if case == "not_spd":
+        S[0, 70 % T, 70 % T] = -5.0
     before = CI.chol_inv.launches
     L, X = CI.chol_inv(S)
     assert CI.chol_inv.launches == before + 1
     Lr, Xr = CI.chol_inv_ref(S)
-    _close(L, Lr, 1e-5)
-    _close(X, Xr, 1e-5)
+    if case == "ill":
+        _close(L, Lr, 1e-5)
+        err, bound = _inverse_error(X, S)
+        assert err <= bound
+    elif case == "not_spd":
+        for got, ref in ((L, Lr), (torch.tril(X), torch.tril(Xr))):
+            nan = torch.isnan(ref)
+            assert nan.any() and torch.equal(torch.isnan(got), nan)
+            _close(got[~nan], ref[~nan], 1e-5)
+        assert not torch.triu(L, 1).any() and not torch.triu(X, 1).any()
+    else:
+        _close(L, Lr, 1e-5)
+        _close(X, Xr, 1e-5)
 
 
 def test_k7_k8_refuse_other_tile_sizes(cuda):

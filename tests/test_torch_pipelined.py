@@ -160,6 +160,47 @@ def test_plan_keeps_every_valid_pair(data, chunk):
     assert split > 0 if chunk == 7 else len(plan) == 1
 
 
+def test_plan_pieces_cover_each_segment_in_order(data):
+    """The bf16 kernel's pieces (``leftlook.ll_pieces``, cut at 8 pairs
+    where no card is counted): consecutive runs of each segment's pairs,
+    in order, slots 0.. for the pieces of a cut segment and -1 for the
+    others; and the update summed as the kernel sums it (each piece's
+    product, the cut segment's pieces added in piece order, then
+    subtracted once) equals the twin on the uncut plan (fp32, 1e-5)."""
+    pool, ga, gb, gd = data
+    # exp_pipe-like short segments beside one of 20 pairs (dst NPOOL - 1)
+    ga, gb = np.r_[ga, ga[:20]], np.r_[gb, gb[:20]]
+    gd = np.r_[np.where(gd == NPOOL - 1, NPOOL - 2, gd), np.full(20, NPOOL - 1)]
+    plan = PL.pipeline_plan(PL.build_pipeline_schedule(ga, gb, gd), "cpu")
+    c, = plan
+    sp, pp, ps, spp, slot = (x.numpy() for x in (
+        c.seg_ptr, c.piece_ptr, c.piece_seg, c.seg_piece_ptr, c.piece_slot))
+    assert pp[0] == 0 and pp[-1] == c.n_pairs and (np.diff(pp) > 0).all()
+    assert c.npiece > c.nseg and 0 < c.nslot == (slot >= 0).sum()
+    np.testing.assert_array_equal(np.sort(slot[slot >= 0]),
+                                  np.arange(c.nslot))
+    for g in range(c.nseg):
+        mine = np.arange(spp[g], spp[g + 1])
+        assert (ps[mine] == g).all()
+        assert pp[mine[0]] == sp[g] and pp[mine[-1] + 1] == sp[g + 1]
+        assert (slot[mine] >= 0).all() == (mine.size > 1)
+    P = torch.from_numpy(pool)
+    got = P.clone()
+    for g in range(c.nseg):
+        total = torch.zeros(T, T)
+        for p in range(spp[g], spp[g + 1]):
+            part = torch.zeros(1, T, T)
+            sl = slice(pp[p], pp[p + 1])
+            PL.pairs_ref(part, P, P, c.pair_a[sl], c.pair_b[sl],
+                         torch.zeros(pp[p + 1] - pp[p], dtype=torch.long),
+                         None)
+            total -= part[0]
+        got[c.seg_dst[g]] -= total
+    want = PL.gemm_scatter_pipelined_ref(P.clone(), plan)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("upd", list(UPD))
 def test_twin_matches_pallas_interpret(data, upd):
     pool, ga, gb, gd = data
