@@ -10,15 +10,17 @@ prints the final ``ok`` line:
    limit (nvidia-smi);
 2. build: compiles the hand-written CUDA kernels K1-K13 from ``csrc/``
    (one nvcc per source, in parallel; ptxas registers, shared memory and
-   spills, and K1's and K3's HMMA counts from ``cuobjdump -sass`` where
-   the toolkit has it: none fails) and
+   spills, and K1's, K3's and K5's HMMA counts from ``cuobjdump -sass``
+   where the toolkit has it, K5's those of K3's kernel with fp32
+   operands: none fails) and
    the port's native host library (g++; prints whether it was built or
    the Python ordering runs);
 3. kernels: each kernel against its plain PyTorch twin on the same inputs,
    max|d| <= 1e-4 max|ref| for K1 and K3, 1e-5 for K2 (summation order
-   only) and K4 (plus equal clamp counts); K1, K2 and K3 also run twice
-   and must repeat bit for bit (K3 wherever it is checked, phases 11 and
-   13 too), and K2 must launch once a sweep direction: on the
+   only) and K4 (plus equal clamp counts); K1, K2, K3, K4 and K5 also
+   run twice and must repeat bit for bit (K3, K4 and K5 wherever they
+   are checked, phases 7, 8, 11 and 13 too), and K2 must launch once a
+   sweep direction: on the
    poisson_3d(24) T=128 layout, K1 (left-looking E2) on the busiest
    level's chunks and the dense-tail pre-pass, bf16 and fp32 updates,
    K2 (sweeps) forward + backward at R = 1 and R = 3; on the poisson_3d(24) T=128 Schur layout
@@ -32,8 +34,10 @@ prints the final ``ok`` line:
    the convection_diffusion_3d(24) LU layout, bf16 and fp32; K3 ``d`` and
    ``src_pool`` on those layouts in Schur mode (the plane z = 23); K2's
    LU backward at R = 1 and R = 3; K4 (static-pivot tile factorization)
-   LU and LDLᵗ on the busiest level's diagonal tiles and on a batch with
-   planted zero pivots; ``get_schur`` under LU against the sparse-LU S;
+   LU and LDLᵗ on the busiest level's diagonal tiles and on batches with
+   planted zero pivots at T = 32, 64 and 128 (either side of its first
+   32 x 32 block step too); ``get_schur`` under LU against the sparse-LU
+   S;
    then slice 3 on the busiest level's pairs of the poisson_3d(24) (LLᵗ,
    LDLᵗ) and convection_diffusion_3d(24) (LU) T=128 layouts, bf16 and
    fp32, 1e-4 max|ref|: K3 reading operand arrays (the panel stream
@@ -68,15 +72,20 @@ prints the final ``ok`` line:
    against its twin on the path's busiest residue level, and timed;
 7. LU path: ``Pastix(convection_diffusion_3d(--lu-nx), T=128, bf16
    updates, LU)`` (n = 343,000 at the default 70: the reference's
-   convdiff rung) as in 4; K1, K2 and K4 must launch, no twin; then K1
+   convdiff rung) as in 4; K1, K2 and K4 must launch, no twin; one more
+   factorize under ``torch.profiler``: K4's device time summed by kernel
+   name, its share of ``fact_ms`` and the longest kernels; then K1
    cross-pool, K2's LU sweeps and K4 LU against their twins and timed at
-   the path's busiest level;
+   the path's busiest level, and ``tri_inv_batch`` (upper, then unit) on
+   the same factored tiles;
 8. LDLᵗ path: ``Pastix(poisson_3d(--ldlt-nx) - σI, T=128, fp32 updates,
    LDLT)``, σ halfway between the two smallest eigenvalues of the
    Laplacian (a shift-and-invert matrix, one negative eigenvalue), as in
    7; with no clamped pivot exactly one pivot of d is negative
-   (Sylvester); K1 scaled (against its twin, and timed, in fp32, the
-   path's dtype), K2 against its twin, and K4 LDLᵗ; then, not checked, what bf16 updates leave
+   (Sylvester); K4's device time over one factorize as in 7; K1 scaled
+   (against its twin, and timed, in fp32, the path's dtype), K2 against
+   its twin, and K4 LDLᵗ, with ``tri_inv_batch`` (unit) on its tiles;
+   then, not checked, what bf16 updates leave
    on this matrix (their error is not contracted by the refinement at
    nx=64);
 9. LU Schur path: ``convection_diffusion_3d(--schur-nx)`` with the plane
@@ -250,14 +259,6 @@ def e2_bound_lists(lists, T, pair_flops, upd):
     return bound(flops, peak, nbytes)
 
 
-def plan_dsts(c):
-    """The dst tiles of one E2 chunk: K1, K3 and K6 chunks list theirs
-    per segment, K5 chunks per block row (-1: no tile)."""
-    if hasattr(c, "row_dst"):
-        return c.row_dst[c.row_dst >= 0]
-    return c.seg_dst
-
-
 def check_e2(name, run, run_ref, pool, chunks, update_dtype, label,
              repeat=False, **kw):
     """An E2 kernel (K1, K3, K5 or K6) against its twin on copies of
@@ -272,7 +273,7 @@ def check_e2(name, run, run_ref, pool, chunks, update_dtype, label,
         raise AssertionError(f"{name} {label}: two runs differ")
     ref = run_ref(pool.clone(), chunks, update_dtype, **kw)
     torch.cuda.synchronize()
-    touched = torch.cat([plan_dsts(c) for c in chunks]).unique()
+    touched = torch.cat([c.seg_dst for c in chunks]).unique()
     scale = float(ref[touched].abs().max())
     err = float((got - ref).abs().max())
     ok = err <= TOL_E2 * scale
@@ -446,41 +447,45 @@ def k2_chain_timed(dev, n=256, T=128):
     return ms
 
 
-# zero pivots planted by planted_tiles
-PLANTED = 4
-
-
 def planted_tiles(T, lu, n=6, seed=0):
-    """``n`` random diagonally dominant tiles with PLANTED zero pivots
-    planted by a zero row and column, which stay exactly zero through
-    the updates: tile 0 at 0, tile 1 at 0 and 5, tile 2 at T - 1."""
+    """(tiles, clamps): ``n`` random diagonally dominant tiles with zero
+    pivots planted by a zero row and column, which stay exactly zero
+    through the updates, each clamped once: tile 0 at 0, tile 1 at 0 and
+    5, tile 2 at T - 1, and either side of K4's first 32 x 32 block
+    step, tile 3 at 31 and tile 4 at 32 (T > 32)."""
     import torch
 
     rng = np.random.default_rng(seed)
     R = rng.standard_normal((n, T, T))
     M = R + (0 if lu else R.transpose(0, 2, 1)) + 2 * T * np.eye(T)
-    for t, k in ((0, 0), (1, 0), (1, 5), (2, T - 1)):
+    planted = ((0, 0), (1, 0), (1, 5), (2, T - 1), (3, 31)) + (
+        ((4, 32),) if T > 32 else ())
+    for t, k in planted:
         M[t, k, :] = M[t, :, k] = 0.0
-    return torch.tensor(M, dtype=torch.float32, device="cuda")
+    return torch.tensor(M, dtype=torch.float32, device="cuda"), len(planted)
 
 
 def check_k4(tiles, eps, lu, label, expect=None):
     """K4 against its twin on copies of ``tiles`` (all factored): equal
     clamp counts (and ``expect`` when given), max|d| <= 1e-5 max|ref| on
-    the tiles and, for LDLᵗ, on d; returns max|d|."""
+    the tiles and, for LDLᵗ, on d, and a second K4 run bit-identical to
+    the first; returns max|d|."""
     import torch
     from pastix_tpu_torch.numeric import tile_factor as TF
 
     idx = torch.arange(tiles.shape[0], device=tiles.device)
-    got, ref = tiles.clone(), tiles.clone()
+    got, again, ref = tiles.clone(), tiles.clone(), tiles.clone()
     n_got = torch.zeros((), dtype=torch.int32, device=tiles.device)
-    n_ref = torch.zeros_like(n_got)
+    n_again, n_ref = torch.zeros_like(n_got), torch.zeros_like(n_got)
     d_got = TF.tile_factor(got, idx, eps, n_got, lu)
+    d_again = TF.tile_factor(again, idx, eps, n_again, lu)
     d_ref = TF.tile_factor_ref(ref, idx, eps, n_ref, lu)
     torch.cuda.synchronize()
+    same = torch.equal(got, again) and int(n_got) == int(n_again) and (
+        d_got is None or torch.equal(d_got, d_again))
     scale = float(ref.abs().max())
     err = float((got - ref).abs().max())
-    ok = err <= TOL_K4 * scale and int(n_got) == int(n_ref)
+    ok = same and err <= TOL_K4 * scale and int(n_got) == int(n_ref)
     if expect is not None:
         ok = ok and int(n_got) == expect
     if d_got is not None:
@@ -489,7 +494,9 @@ def check_k4(tiles, eps, lu, label, expect=None):
         err = max(err, d_err)
     log(f"K4 {'LU' if lu else 'LDLT'} {label}: {tiles.shape[0]} tiles, "
         f"clamps {int(n_got)} (twin {int(n_ref)}), max|d|={err:.3e} "
-        f"max|ref|={scale:.3e} -> {'ok' if ok else 'FAIL'}")
+        f"max|ref|={scale:.3e}, two runs "
+        f"{'bit-identical' if same else 'DIFFER'} -> "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"K4 {label} disagrees with its twin")
     return err
@@ -754,11 +761,14 @@ def k4_timed(solver, lu):
     twin and, for LU, ``torch.linalg.lu_factor_ex(pivot=False)`` (the same
     function when no pivot is clamped); each call factors a fresh copy,
     whose time is measured alone and taken off.  Bound: 2/3 T^3 (LU) or
-    1/3 T^3 (LDLᵗ) flop per tile at the fp32 peak, or 2 x 64 KiB per tile
-    at the memory rate."""
+    1/3 T^3 (LDLᵗ) flop per tile at the fp32 peak, or the bytes per tile at
+    the memory rate: LU reads and writes the tile (2 T^2 floats), LDLᵗ
+    reads its lower triangle and writes the tile and the pivots
+    (T(T+1)/2 + T^2 + T floats)."""
     import scipy.sparse as sp
     import torch
     from pastix_tpu_torch.numeric import tile_factor as TF
+    from pastix_tpu_torch.numeric.kernels import tri_inv_batch
 
     lay = solver.layout
     T = lay.T
@@ -783,15 +793,64 @@ def k4_timed(solver, lu):
     lib = None
     if lu:
         lib = cuda_ms(lambda: torch.linalg.lu_factor_ex(tiles, pivot=False))
+    floats = 2 * T * T if lu else T * (T + 1) // 2 + T * T + T
     bd = bound(B * (2.0 if lu else 1.0) / 3.0 * T ** 3, PEAK_FP32,
-               B * 2 * T * T * 4)
+               B * floats * 4)
     log(f"timing K4 {'LU' if lu else 'LDLT'} busiest level ({B} tiles): "
         f"kernel {ms:.3f} ms, twin {plain:.3f} ms, bound {bd[0]:.4f} ms "
         f"({bd[1]}), lu_factor_ex(pivot=False) "
         f"{'n/a' if lib is None else f'{lib:.3f} ms'}")
     err = check_k4(tiles, eps, lu, f"{'LU' if lu else 'LDLT'} path busiest "
                    "level")
-    return ms, plain, bd, lib, err
+    # the inverses the factorization takes after K4 (numeric/factorize.py:
+    # LU U^-1 and the unit L^-1, LDLᵗ the unit L^-1), on the same tiles
+    work.copy_(tiles)
+    TF.tile_factor(work, idx, eps, npiv, lu)
+    tri = ((lambda: (tri_inv_batch(work, upper=True),
+                     tri_inv_batch(work, unit=True))) if lu
+           else (lambda: tri_inv_batch(work, unit=True)))
+    tri_ms = cuda_ms(tri)
+    log(f"timing tri_inv_batch on the same {B} factored tiles "
+        f"({'two calls, upper then unit' if lu else 'one call, unit'}): "
+        f"{tri_ms:.3f} ms")
+    return ms, plain, bd, lib, err, tri_ms
+
+
+def factor_kernels(solver, num, launches):
+    """One more ``factorize()`` of a solver under ``torch.profiler``: K4's
+    device time summed by kernel name (``tile_factor_kernel``) and its
+    share of ``num["fact_ms"]`` (the path's second, unprofiled call), the
+    run's device time over every kernel, copy and fill, and its eight
+    longest kernels by name, logged; the numbers go into ``num``.  K4's
+    profiled launches must be those of one factorization (half of
+    ``launches``, which counted two)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        solver.factorize()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    k4 = [r for r in rows if "tile_factor_kernel" in r[0]]
+    k4_ms, k4_n = sum(r[1] for r in k4), sum(r[2] for r in k4)
+    log(f"  one factorize under the profiler: device {total:.3f} ms; K4 "
+        f"{k4_ms:.3f} ms in {k4_n} launches (path's count "
+        f"{launches // 2} a factorization), "
+        f"{100 * k4_ms / num['fact_ms']:.1f} % of fact_ms "
+        f"{num['fact_ms']:.1f}")
+    for name, ms, n in rows[:8]:
+        log(f"    {ms:9.3f} ms {n:5d}x {name[:100]}")
+    if not total or k4_n != launches // 2:
+        raise AssertionError("the profiler did not see one factorization's "
+                             "K4 launches")
+    num.update(k4_device_ms=k4_ms, k4_share=k4_ms / num["fact_ms"],
+               fact_device_ms=total)
 
 
 def k1_gather_timed(lists, T):
@@ -880,8 +939,10 @@ def lu_path(nx, dev, errs):
                    LL.gemm_scatter_ll_ref, k1_lists(s, lv), s.layout.T,
                    k1_flops, upd)
     k2lu = k2_timed(s)
+    factor_kernels(s, num, launches["K4"])
     k4lu = k4_timed(s, lu=True)
     errs["K4lu"] = max(errs["K4lu"], k4lu[4])
+    num["tri_inv_ms"] = k4lu[5]
     return launches, num, k1x, k2lu, k4lu
 
 
@@ -912,8 +973,10 @@ def ldlt_path(nx, dev, errs):
     k1d = e2_timed("K1 d LDLT path busiest level", LL.gemm_scatter_ll,
                    LL.gemm_scatter_ll_ref, k1_lists(s, lv), s.layout.T,
                    k1_flops, upd)
+    factor_kernels(s, num, launches["K4"])
     k4ldlt = k4_timed(s, lu=False)
     errs["K4ldlt"] = max(errs["K4ldlt"], k4ldlt[4])
+    num["tri_inv_ms"] = k4ldlt[5]
     x0 = s.solve(b, refine=False)
     del s, lv
     # not a check: bf16 trailing updates on this nearly singular matrix
@@ -1008,9 +1071,11 @@ def check_variants(dev, errs, sch24):
         k4 = "K4lu" if kind == LU else "K4ldlt"
         errs[k4] = max(errs[k4], check_k4(pool[lvd.diag], eps, kind == LU,
                                           "busiest level of A"))
-        errs[k4] = max(errs[k4], check_k4(
-            planted_tiles(128, kind == LU), 1e-6, kind == LU,
-            "planted zero pivots", PLANTED))
+        for T in (32, 64, 128):
+            tiles, clamps = planted_tiles(T, kind == LU)
+            errs[k4] = max(errs[k4], check_k4(
+                tiles, 1e-6, kind == LU, f"planted zero pivots T={T}",
+                clamps))
         del ks, pools, pool
     # K3 variants on the Schur layouts (plane z = 23), fp32 for get_schur
     for kind, A24, key in ((LDLT, A24s, "K3d"), (LU, A24c, "K3x")):
@@ -1038,23 +1103,14 @@ def pair_arrays(c, T):
     """(a, b, dst, k, lo, hi) of every pair of one K3, K5 or K6 chunk as
     numpy arrays: a's tile (K3: its position in the chunk's operand form,
     see :func:`e2_work`), b's, the dst tile, the source column (or None)
-    and the rows [lo, hi) of a the pair reads."""
-    if hasattr(c, "row_dst"):  # K5
-        a, b, dst, k = (x.cpu().numpy() for x in c.pairs())
-        lo, hi = np.zeros(a.size, np.int64), np.full(a.size, T)
-    elif hasattr(c, "pair_r0"):  # K6
+    and the rows [lo, hi) of a the pair reads.  K5 chunks are K3's."""
+    if hasattr(c, "pair_r0"):  # K6
         a, b, dst, k, r0, ha = (x.cpu().numpy().astype(np.int64)
                                 for x in c.pairs())
-        lo, hi = r0, r0 + ha
-    else:  # K3
-        import torch
-
-        a, b = c.pair_a.cpu().numpy(), c.pair_b.cpu().numpy()
-        dst = torch.repeat_interleave(c.seg_dst, c.seg_ptr.diff()).cpu(
-        ).numpy()
-        k = None if c.pair_k is None else c.pair_k.cpu().numpy()
-        lo, hi = np.zeros(a.size, np.int64), np.full(a.size, T)
-    return a, b, dst, k, lo, hi
+        return a, b, dst, k, r0, r0 + ha
+    a, b, dst, k = (None if x is None else x.cpu().numpy()
+                    for x in c.pairs())
+    return a, b, dst, k, np.zeros(a.size, np.int64), np.full(a.size, T)
 
 
 def e2_work(steps, T):
@@ -1381,7 +1437,8 @@ def check_rightlook_kernels(dev, errs):
                 for dst, _, _, chunks, kw in steps:
                     errs[key] = max(errs[key], check_e2(
                         key, run, ref, pools[dst], chunks, upd,
-                        f"{kind.name} {str(upd)[6:]}", **kw))
+                        f"{kind.name} {str(upd)[6:]}", repeat=key == "K5",
+                        **kw))
         del s, f, lv
 
 
@@ -1467,7 +1524,7 @@ def rightlook_path(label, A, kind, modes, dev, errs):
         key = f"{kind.name} {mode}"
         errs.setdefault(key, 0.0)
         timed = rl_checked(kern, run, ref, steps, pools, torch.bfloat16,
-                           lay.T, errs, key, repeat=kern == "K3")
+                           lay.T, errs, key, repeat=kern in ("K3", "K5"))
         out[mode] = (launches, {
             "fact_ms": fact[1], "left_fact_ms": left_ms,
             "solve_ms": s.report.solve_time * 1e3,
@@ -1940,9 +1997,11 @@ def probe_harness(dev, errs):
     return out
 
 
-def sass_count(build, kernel, ops):
+def sass_count(build, kernel, ops, also=None):
     """How many of each SASS opcode of ``ops`` the library's ``kernel``
-    functions hold (``cuobjdump -sass``), or why it cannot say."""
+    functions hold (``cuobjdump -sass``; ``also``: only those whose name
+    holds one of these strings too), and how many functions that is, or
+    why it cannot say."""
     import shutil
     import subprocess
 
@@ -1952,10 +2011,12 @@ def sass_count(build, kernel, ops):
         return "cuobjdump not found"
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, timeout=300).stdout
-    counts, inside = dict.fromkeys(ops, 0), False
+    counts, inside = dict.fromkeys(ops + ("functions",), 0), False
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = kernel in line
+            inside = kernel in line and (
+                also is None or any(s in line for s in also))
+            counts["functions"] += inside
         elif inside:
             for op in ops:
                 counts[op] += f" {op}." in line or f" {op} " in line
@@ -2004,6 +2065,11 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
+    t_start = time.perf_counter()
+
+    def elapsed(what):
+        log(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
+
     # 2. build
     t0 = time.perf_counter()
     _build.get_lib()
@@ -2014,9 +2080,13 @@ def main() -> int:
         if ("registers" in line or "spill" in line or "entry function"
                 in line or line.startswith("---")):
             log(f"  ptxas: {line.strip()}")
-    for kname, src in (("K1", "ll_gemm_scatter"),
-                       ("K3", "pipelined_gemm_scatter")):
-        counts = sass_count(_build, src, ("HMMA", "HGMMA"))
+    # K5 runs K3's kernel with fp32 operands: its instantiations with
+    # A_F32 and B_F32 set (mangled, or demangled)
+    for kname, src, also in (
+            ("K1", "ll_gemm_scatter", None),
+            ("K3", "pipelined_gemm_scatter", None),
+            ("K5", "pipelined_gemm_scatter", ("Lb1ELb1E", "true, true"))):
+        counts = sass_count(_build, src, ("HMMA", "HGMMA"), also)
         log(f"{kname} SASS: {counts}")
         if isinstance(counts, dict) and not counts["HMMA"]:
             raise AssertionError(f"{kname}: no HMMA in its SASS")
@@ -2088,9 +2158,11 @@ def main() -> int:
     check_rightlook_kernels(dev, errs)
     check_chol_inv_kernels(dev, errs)
 
+    elapsed("phases 1-3")
     # 4.-5. the main path, and its kernels at its shapes
     launches, main_num, k1, k2 = main_path(args.nx, dev, errs)
 
+    elapsed("phases 4-5")
     # 6.-10. the LLᵗ Schur path, the LU and LDLᵗ paths and their Schur
     # paths
     LLT, LU, LDLT = Factorization.LLT, Factorization.LU, Factorization.LDLT
@@ -2104,6 +2176,7 @@ def main() -> int:
     schur_runs["K3d"] = schur_path(LDLT, shift_invert(nxs)[0], nxs, None,
                                    "K3d", dev, errs)
 
+    elapsed("phases 6-10")
     # 11. the right-looking E2 schedules (PASTIX_E2_LL=0), bf16 updates:
     # LDLᵗ on the unshifted Laplacian (bf16 diverges on the shifted one)
     rl = {
@@ -2120,12 +2193,14 @@ def main() -> int:
             convection_diffusion_3d(args.lu_nx), LU, ("stream",), dev, errs),
     }
 
+    elapsed("phase 11")
     # 12. the fused-diagonal LLᵗ path (PASTIX_FUSED_DIAG=1)
     fused, fsolver, k7, k8 = fused_path(
         args.nx, dev, errs, main_num["fact_ms"],
         rl["LLT"]["stream"][1]["fact_ms"])
     k8_one = k8_tiles(dev, errs)
 
+    elapsed("phase 12")
     # 13. the E2 A/B harness (exp_pipe.py); the counts are those of each
     # case's timed runs
     ab = ab_harness(fsolver, dev, errs)
@@ -2137,7 +2212,9 @@ def main() -> int:
     # each case's timed runs
     cache = cache_harness(fsolver, dev, errs)
     del fsolver
+    elapsed("phases 13-14")
     probes = probe_harness(dev, errs)
+    elapsed("phase 15")
     if min(v[3] for v in cache.values()) == 0 or min(
             r[-1] for r in probes) == 0:
         raise AssertionError("phase 14 or 15 did not launch every kernel")
@@ -2183,6 +2260,8 @@ def main() -> int:
     ]
     # the right-looking rows: launches from the schedule's run, max|d|
     # the larger of phase 3's and the path level's
+    # K5 runs K3's kernel (pipelined_gemm_scatter.cu) on its tensor-core
+    # body seg_mma.cuh (bf16) with the pool as both operand arrays
     k5_at = "pastix_tpu/numeric/block_kernels.py:689"
     k6_at = "pastix_tpu/numeric/slab_kernels.py:588"
     for name, src, at, kind, mode, k3key in (
@@ -2190,10 +2269,8 @@ def main() -> int:
         (f"{k3}[xab,d]", k3, k3_at, "LDLT", "stream", "K3xab"),
         (f"{k3}[xab,src_pool]", k3, k3_at, "LU", "stream", "K3xab"),
         (f"{k3}[compact]", k3, k3_at, "LLT", "pair+compact", "K3compact"),
-        ("block_gemm_scatter", "block_gemm_scatter", k5_at, "LLT", "block",
-         "K5"),
-        ("block_gemm_scatter[d]", "block_gemm_scatter", k5_at, "LDLT",
-         "block", "K5"),
+        ("block_gemm_scatter", k3, k5_at, "LLT", "block", "K5"),
+        ("block_gemm_scatter[d]", k3, k5_at, "LDLT", "block", "K5"),
         ("slab_gemm_scatter", "slab_gemm_scatter", k6_at, "LLT", "slab",
          "K6"),
         ("slab_gemm_scatter[d]", "slab_gemm_scatter", k6_at, "LDLT", "slab",
@@ -2203,6 +2280,8 @@ def main() -> int:
         kernels.append(entry(name, f"{src}.cu", at,
                              launches_m[RL_KERNEL[mode]],
                              max(errs[k3key], errs[f"{kind} {mode}"]), timed))
+        if mode == "block":
+            kernels[-1]["body"] = "pastix_tpu_torch/csrc/seg_mma.cuh"
     # slice 4: K7 and K8 with launches from the fused left-looking path;
     # K9, K10 and ab_pack from the harness, each row the poisson level's
     # case in bf16, its launches too (the other cases in the log)

@@ -23,9 +23,9 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _OUT = os.path.join(_HERE, "_build")
 _SOURCES = ("ll_gemm_scatter.cu", "sweep.cu", "pipelined_gemm_scatter.cu",
-            "tile_factor.cu", "block_gemm_scatter.cu", "slab_gemm_scatter.cu",
-            "chol_inv.cu", "segment_gemm_scatter.cu",
-            "cache_gemm_scatter.cu", "dma_probe.cu")
+            "tile_factor.cu", "slab_gemm_scatter.cu", "chol_inv.cu",
+            "segment_gemm_scatter.cu", "cache_gemm_scatter.cu",
+            "dma_probe.cu")
 _HEADERS = ("common.cuh", "segment_gemm.cuh", "mma_tile.cuh",
             "seg_mma.cuh")
 _FLAGS = (
@@ -117,8 +117,6 @@ def get_lib() -> ctypes.CDLL:
     lib.pastix_pipelined_gemm_scatter.argtypes = [P] * 15 + [L, L, I, I, I,
                                                               I, P]
     lib.pastix_pipelined_gemm_scatter.restype = I
-    lib.pastix_block_gemm_scatter.argtypes = [P] * 7 + [L, I, I, P]
-    lib.pastix_block_gemm_scatter.restype = I
     lib.pastix_slab_gemm_scatter.argtypes = [P] * 9 + [L, I, I, P]
     lib.pastix_slab_gemm_scatter.restype = I
     lib.pastix_tile_factor.argtypes = [P] * 4 + [L, I, I, ctypes.c_float, P]

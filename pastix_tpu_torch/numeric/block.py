@@ -13,16 +13,24 @@ kernel (K3).
 
 The TPU words (entry flags, size classes, the ``io_ops`` / ``sc_ops``
 DMA and sublane-scatter segments, ``rd``/``nx``/``wr``/``endw``) are
-decoded once, at analysis time, by :func:`block_plan` into what the
-CUDA kernel reads: per dst block row (one tile row I of a block), its up
-to four dst tiles, and per entry that reaches the row the a tile (I, K),
-its source column K and the b tile (J, K) of each block column, or none.
+decoded once, at analysis time, by :func:`block_plan` into K3's tables
+(``pipelined.PipeChunk``): a dst segment per stored dst tile that a
+chunk's entries reach, its pairs (a (I, K), b (J, K), K) in entry order,
+cut into pieces by ``leftlook.ll_pieces``.
 
-``gemm_scatter_block`` launches the hand-written CUDA kernel
-(``csrc/block_gemm_scatter.cu``) for a pool on a CUDA device and its
-plain twin ``gemm_scatter_block_ref`` for a pool on the CPU, plain and
-scaled (``d``, LDLᵗ).  As the reference's kernel does, the scaled form
-multiplies the fp32 a-slab by the pivots and rounds once.
+``gemm_scatter_block`` launches K3's hand-written CUDA kernel
+(``csrc/pipelined_gemm_scatter.cu``: bf16 updates on the tensor-core
+body ``csrc/seg_mma.cuh`` with the fp32 pool as both operand arrays,
+rounded as the fragments load; fp32 updates on its FMA body) for a pool
+on a CUDA device, counted as K5, and its plain twin
+``gemm_scatter_block_ref`` for a pool on the CPU, plain and scaled
+(``d``, LDLᵗ).  As the reference's kernel does, the scaled form
+multiplies the fp32 a-slab by the pivots and rounds once.  The
+reference's kernel shares each a-slab across a block row's four dst
+tiles in VMEM; on the H100 the register file fixes a CTA's output, and
+a CTA holding a T x 16 strip of four tiles reads as many a and b bytes
+per output column as one holding a T x 64 half of one, so K3's column
+blocks give the same reuse.
 """
 
 from __future__ import annotations
@@ -32,9 +40,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from pastix_tpu_torch import _build
 from pastix_tpu_torch.numeric.kernels import check_pool, check_variant, is_bf16
-from pastix_tpu_torch.numeric.pipelined import pairs_ref
+from pastix_tpu_torch.numeric.leftlook import piece_ctas
+from pastix_tpu_torch.numeric.pipelined import (
+    PipeChunk, launch_chunks, pairs_ref, piece_fields,
+)
 
 # entry flag word layout
 _E_VALID = 1 << 0
@@ -377,34 +387,6 @@ def build_block_plan(
     return BlockPlan(chunks, fb, B_I, B_J, stats)
 
 
-@dataclasses.dataclass
-class BlockChunk:
-    """One chunk of a block plan as the kernel reads it: int64 tensors on
-    the pool's device.  Row r of the chunk is one tile row of one dst
-    block; its entries are ``ent_ptr[r]:ent_ptr[r + 1]``, in plan order."""
-
-    n_pairs: int
-    row_dst: torch.Tensor  # [nrow, B_J] pool index of each dst tile, or -1
-    ent_ptr: torch.Tensor  # [nrow + 1] entry offsets of the rows
-    ent_a: torch.Tensor  # [nent] pool index of the entry's a tile (I, K)
-    ent_b: torch.Tensor  # [nent, B_J] pool index of b (J, K), or -1
-    ent_k: torch.Tensor  # [nent] source column K (LDLᵗ d)
-
-    @property
-    def nrow(self) -> int:
-        return self.row_dst.shape[0]
-
-    def pairs(self):
-        """(a, b, dst, k) of every cross product the chunk applies, in
-        the kernel's order per dst tile."""
-        e, j = torch.nonzero(self.ent_b >= 0, as_tuple=True)
-        row = torch.repeat_interleave(
-            torch.arange(self.nrow, device=self.ent_b.device),
-            self.ent_ptr.diff())[e]
-        return (self.ent_a[e], self.ent_b[e, j], self.row_dst[row, j],
-                self.ent_k[e])
-
-
 def ragged_arange(cnt):
     """[0, cnt[0]), [0, cnt[1]), ... concatenated (int64 numpy)."""
     cnt = np.asarray(cnt, np.int64)
@@ -459,48 +441,39 @@ def decode_block_chunk(t, B_J: int = 4):
 
 
 def block_plan(plan: BlockPlan, blk_row, device) -> list:
-    """Kernel tables (:class:`BlockChunk`) of a :func:`build_block_plan`
-    result, one per chunk, uploaded to ``device``.  ``blk_row``: the
+    """K3's kernel tables (``pipelined.PipeChunk``) of a
+    :func:`build_block_plan` result, one per chunk, uploaded to
+    ``device``, the pieces cut for its card (``leftlook.piece_ctas``): a
+    dst segment for each stored dst tile that the chunk's entries reach,
+    by (block, tile row, block column), its pairs the products of the
+    entries that reach the tile, in entry order.  ``blk_row``: the
     layout's tile rows, which name a dst tile's row in its block.
 
-    Blocks are disjoint, so the rows of one chunk never share a dst tile;
-    a block cut by a chunk boundary lands in two chunks, which run in
-    order."""
+    Blocks are disjoint and a row's dst tiles its own, so no two
+    segments of a chunk share a dst tile, K3's invariant; a block cut by
+    a chunk boundary lands in two chunks, which run in order."""
     blk_row = np.asarray(blk_row, np.int64)
-    B_J = plan.B_J
+    ctas = piece_ctas(device)
+    tens = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.int64),
+                                     device=device)
     out = []
     for t in plan.chunks:
-        a, b, dst, k, e, blk, jj = decode_block_chunk(t, B_J)
+        a, b, dst, k, e, blk, jj = decode_block_chunk(t, plan.B_J)
         if not a.size:
             continue
-        I = blk_row[dst]
-        # rows: (block, dst row); row entries: (row, entry)
-        order = np.lexsort((jj, e, I, blk))
-        a, b, dst, k, e, blk, jj, I = (
-            x[order] for x in (a, b, dst, k, e, blk, jj, I))
-        new_row = np.r_[True, (blk[1:] != blk[:-1]) | (I[1:] != I[:-1])]
-        new_ent = new_row | np.r_[True, e[1:] != e[:-1]]
-        row = np.cumsum(new_row) - 1
-        ent = np.cumsum(new_ent) - 1
-        nrow, nent = int(row[-1]) + 1, int(ent[-1]) + 1
-        # one product per (entry, row, column), one a tile (I, K) per
-        # (entry, row), one dst tile per (row, column)
-        assert np.unique(ent * B_J + jj).size == ent.size
-        ent_a = a[new_ent]
-        assert (a == ent_a[ent]).all(), "an entry reaches one row twice"
-        row_dst = np.full((nrow, B_J), -1, np.int64)
-        row_dst[row, jj] = dst
-        assert (row_dst[row, jj] == dst).all()
-        ent_b = np.full((nent, B_J), -1, np.int64)
-        ent_b[ent, jj] = b
-        tens = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.int64),
-                                         device=device)
-        out.append(BlockChunk(
-            n_pairs=int(a.size),
-            row_dst=tens(row_dst),
-            ent_ptr=tens(np.r_[np.flatnonzero(new_row[new_ent]), nent]),
-            ent_a=tens(ent_a), ent_b=tens(ent_b), ent_k=tens(k[new_ent]),
-        ))
+        order = np.lexsort((e, jj, blk_row[dst], blk))
+        a, b, dst, k, e = (x[order] for x in (a, b, dst, k, e))
+        new = np.r_[True, dst[1:] != dst[:-1]]
+        starts = np.flatnonzero(new)
+        assert np.unique(dst[starts]).size == starts.size, (
+            "a dst tile in two segments of a chunk")
+        assert (np.diff(e)[~new[1:]] > 0).all(), (
+            "an entry reaches a dst tile twice")
+        seg_ptr = np.r_[starts, a.size]
+        out.append(PipeChunk(
+            n_pairs=int(a.size), seg_ptr=tens(seg_ptr),
+            seg_dst=tens(dst[starts]), pair_a=tens(a), pair_b=tens(b),
+            pair_k=tens(k), **piece_fields(seg_ptr, a.size, ctas, tens)))
     return out
 
 
@@ -510,27 +483,19 @@ def gemm_scatter_block(pool: torch.Tensor, chunks, update_dtype=None, *,
     a :func:`block_plan`, in place: ``op`` rounds to ``update_dtype``
     after the scaling, products accumulate in fp32.  The plan's fallback
     pairs are not applied (the caller runs them through K3).  A pool on
-    a CUDA device goes through kernel K5, one launch per chunk, in order
-    on the current stream; a pool on the CPU through
+    a CUDA device goes through kernel K5, K3's kernel with the pool as
+    both operand arrays (``pipelined.launch_chunks``), one launch per
+    chunk, in order on the current stream; a pool on the CPU through
     :func:`gemm_scatter_block_ref`."""
     check_pool(pool)
-    check_variant(pool, d, None, [])
+    check_variant(pool, d, None, chunks)
     bf16 = is_bf16(update_dtype)
     if pool.device.type == "cpu":
         return gemm_scatter_block_ref(pool, chunks, update_dtype, d=d)
     if pool.device.type != "cuda":
         raise ValueError(f"unsupported device {pool.device}")
-    lib = _build.get_lib()
-    stream = _build.stream_ptr(pool.device)
-    for c in chunks:
-        err = lib.pastix_block_gemm_scatter(
-            pool.data_ptr(), c.row_dst.data_ptr(), c.ent_ptr.data_ptr(),
-            c.ent_a.data_ptr(), c.ent_b.data_ptr(),
-            None if d is None else d.data_ptr(), c.ent_k.data_ptr(),
-            c.nrow, pool.shape[1], int(bf16), stream,
-        )
-        _build.check(err, "gemm_scatter_block")
-        gemm_scatter_block.launches += 1
+    launch_chunks(pool, chunks, lambda c: (pool, pool, c.pair_a, c.pair_b),
+                  bf16, d, gemm_scatter_block)
     return pool
 
 
@@ -544,7 +509,7 @@ def gemm_scatter_block_ref(pool: torch.Tensor, chunks, update_dtype=None,
     each chunk's cross products as a pair list (a scaled, then rounded
     once), chunks in order."""
     check_pool(pool)
-    check_variant(pool, d, None, [])
+    check_variant(pool, d, None, chunks)
     is_bf16(update_dtype)
     gemm_scatter_block.twin_launches += 1
     for c in chunks:

@@ -199,6 +199,13 @@ class PipeChunk:
     def npiece(self) -> int:
         return self.piece_seg.numel()
 
+    def pairs(self):
+        """(a, b, dst, k) of every pair, in segment order: pool indices
+        of a, b and the dst tile, and the source column (None without
+        ``pair_k``)."""
+        return (self.pair_a, self.pair_b, torch.repeat_interleave(
+            self.seg_dst, self.seg_ptr.diff()), self.pair_k)
+
 
 def piece_fields(seg_ptr, n_pairs, ctas, tens) -> dict:
     """The piece fields of a chunk (:class:`PipeChunk`, and K11's
@@ -402,11 +409,8 @@ def gemm_scatter_pipelined_ref(pool: torch.Tensor, plan, update_dtype=None,
     for c in plan:
         Xa, Xb, pos_a, pos_b = _operands(pool, src, c, update_dtype, xab,
                                          compact, ab_pack)
-        dst = torch.repeat_interleave(
-            c.seg_dst, c.seg_ptr[1:] - c.seg_ptr[:-1]
-        )
-        pairs_ref(pool, Xa, Xb, pos_a, pos_b, dst, update_dtype, d=d,
-                  pair_k=c.pair_k)
+        pairs_ref(pool, Xa, Xb, pos_a, pos_b, c.pairs()[2], update_dtype,
+                  d=d, pair_k=c.pair_k)
     return pool
 
 

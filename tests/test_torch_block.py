@@ -91,14 +91,46 @@ def test_covered_pairs_plus_fallback_are_the_level(layout, gate, chunk):
         got = []
         for c in BK.block_plan(bp, layout.blk_row, "cpu"):
             got += list(zip(*(x.tolist() for x in c.pairs())))
-            # one row per (block, dst row); a row's dst tiles its own
-            dst = c.row_dst[c.row_dst >= 0]
-            assert dst.unique().numel() == dst.numel()
+            # one dst segment per dst tile of the chunk
+            assert c.seg_dst.unique().numel() == c.seg_dst.numel()
         assert len(got) == bp.n_block_pairs
         got += list(zip(*(np.asarray(x).tolist() for x in bp.fallback)))
         want = list(zip(*(np.asarray(x, np.int64).tolist() for x in (
             lv.gemm_a, lv.gemm_b, lv.gemm_d, lv.gemm_k))))
         assert sorted(got) == sorted(want)
+
+
+@pytest.mark.parametrize("gate", [None, 100.0])
+def test_segments_hold_the_decoded_products(layout, gate):
+    """Each chunk's K3 tables (chunks of 16 entries) hold exactly the
+    products that ``decode_block_chunk`` reads from the same chunk's
+    packed words, each once: a segment per dst tile, its pairs in entry
+    order, and pieces that cut each segment in order."""
+    for lv in layout.levels:
+        bp = _plan(BK, layout, lv, gate=gate, chunk=16)
+        plan = BK.block_plan(bp, layout.blk_row, "cpu")
+        assert len(plan) == len(bp.chunks)
+        for t, c in zip(bp.chunks, plan):
+            a, b, dst, k, e, _, _ = BK.decode_block_chunk(t)
+            entry = {p: int(x) for p, x in zip(zip(a, b, dst, k), e)}
+            assert len(entry) == a.size == c.n_pairs
+            got = list(zip(*(x.tolist() for x in c.pairs())))
+            assert sorted(got) == sorted(entry)
+            seg_ptr = c.seg_ptr.tolist()
+            assert seg_ptr[0] == 0 and seg_ptr[-1] == c.n_pairs
+            assert c.seg_dst.unique().numel() == c.nseg
+            for s in range(c.nseg):
+                pairs = got[seg_ptr[s]:seg_ptr[s + 1]]
+                assert pairs and {p[2] for p in pairs} == {
+                    int(c.seg_dst[s])}
+                ents = [entry[p] for p in pairs]
+                assert ents == sorted(set(ents))
+            # pieces: consecutive runs of each segment's pairs
+            pp, ps = c.piece_ptr.tolist(), c.piece_seg.tolist()
+            assert pp[0] == 0 and pp[-1] == c.n_pairs
+            for p in range(c.npiece):
+                assert seg_ptr[ps[p]] <= pp[p] < pp[p + 1] <= seg_ptr[
+                    ps[p] + 1]
 
 
 def _levels(lay):

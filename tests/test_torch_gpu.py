@@ -383,27 +383,57 @@ def test_k3_variants_match_twin(cuda, T, upd, kind):
                                                      **kw), plan)
 
 
+def _k4_tiles(T, lu, case, dev):
+    """(pool, diag, expected clamps) for K4: random diagonally dominant
+    tiles with zero pivots planted by a zero row and column, which stay
+    exactly zero through the updates, so each clamps once.  ``gather``:
+    40 tiles, planted in tile 3 at 0 and tile 7 at 9, 33 of them
+    gathered by pool index; ``planted``: 6 tiles as chip_smoke.py's
+    planted_tiles, tile 0 at 0, tile 1 at 0 and 5, tile 2 at T - 1, and
+    either side of the first block step, tile 3 at 31 and tile 4 at 32
+    (T > 32), all factored."""
+    rng = np.random.default_rng(T)
+    n = 40 if case == "gather" else 6
+    R = rng.standard_normal((n, T, T))
+    M = R + (0 if lu else R.transpose(0, 2, 1)) + 2 * T * np.eye(T)
+    if case == "gather":
+        planted = ((3, 0), (7, 9))
+        diag = rng.permutation(n)[:33]
+    else:
+        planted = ((0, 0), (1, 0), (1, 5), (2, T - 1), (3, 31)) + (
+            ((4, 32),) if T > 32 else ())
+        diag = np.arange(n)
+    for t, k in planted:
+        M[t, k, :] = M[t, :, k] = 0.0
+    expect = sum(t in diag.tolist() for t, _ in planted)
+    return (torch.tensor(M, dtype=torch.float32, device=dev),
+            torch.tensor(diag, device=dev), expect)
+
+
 @pytest.mark.parametrize("T", [32, 64, 128])
 @pytest.mark.parametrize("lu", [True, False], ids=["lu", "ldlt"])
-def test_k4_matches_twin(cuda, T, lu):
-    """K4 on random diagonally dominant tiles, two with planted zero
-    pivots (zero row and column), gathered by pool index."""
-    rng = np.random.default_rng(T)
-    R = rng.standard_normal((40, T, T))
-    M = R + (0 if lu else R.transpose(0, 2, 1)) + 2 * T * np.eye(T)
-    M[3, 0, :] = M[3, :, 0] = M[7, 9, :] = M[7, :, 9] = 0.0
-    pool = torch.tensor(M, dtype=torch.float32, device=cuda)
-    diag = torch.tensor(rng.permutation(40)[:33], device=cuda)
+@pytest.mark.parametrize("case", ["gather", "planted"])
+def test_k4_matches_twin(cuda, T, lu, case):
+    """K4 against its twin with planted zero pivots (:func:`_k4_tiles`):
+    the expected clamp counts, max|d| <= 1e-5 max|ref| on the tiles and
+    on d, and a second run bit-identical to the first."""
+    pool, diag, expect = _k4_tiles(T, lu, case, cuda)
     eps = 1e-6
-    got, ref = pool.clone(), pool.clone()
-    n_got = torch.zeros((), dtype=torch.int32, device=cuda)
-    n_ref = torch.zeros((), dtype=torch.int32, device=cuda)
+
+    def run(fn):
+        out, npiv = pool.clone(), torch.zeros((), dtype=torch.int32,
+                                              device=cuda)
+        d = fn(out, diag, eps, npiv, lu)
+        return out, d, int(npiv)
+
     before = TF.tile_factor.launches
-    d_got = TF.tile_factor(got, diag, eps, n_got, lu)
+    got, d_got, n_got = run(TF.tile_factor)
     assert TF.tile_factor.launches == before + 1
-    d_ref = TF.tile_factor_ref(ref, diag, eps, n_ref, lu)
-    assert int(n_got) == int(n_ref) == int(3 in diag.tolist()) + int(
-        7 in diag.tolist())
+    again, d_again, n_again = run(TF.tile_factor)
+    assert torch.equal(got, again) and n_again == n_got
+    assert lu or torch.equal(d_got, d_again)
+    ref, d_ref, n_ref = run(TF.tile_factor_ref)
+    assert n_got == n_ref == expect
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
     if not lu:
         assert float((d_got - d_ref).abs().max()) <= 1e-5 * float(
@@ -539,27 +569,72 @@ def test_k3_operand_arrays_match_twin(cuda, T, upd, form, kind):
     _close_e2(got, ref, plan)
 
 
+def _planted_block(T, dev, seed=0):
+    """A K5 pool and plan on random tiles: one 8 x 4 dst block (its 26
+    lower tiles) below 200 source panels K, each holding the 8 tiles (I,
+    K) of the block's rows; panels 0..191 reach only the block row I =
+    207, the last 8 every row.  That row's four dst segments hold 200
+    pairs each and are cut into pieces; the others hold 8.  Returns
+    (pool, plan, d)."""
+    N, nbc = 200, 208
+    keys = np.array(sorted([K * nbc + I for K in range(N)
+                            for I in range(N, N + 8)]
+                           + [J * nbc + I for J in range(N, N + 4)
+                              for I in range(J, N + 8)]))
+    tile = lambda I, J: int(np.searchsorted(keys, J * nbc + I))
+    ga, gb, gd, gk = [], [], [], []
+    for K in range(N):
+        for I in range(N, N + 8) if K >= N - 8 else (N + 7,):
+            for J in range(N, min(I, N + 3) + 1):
+                ga.append(tile(I, K))
+                gb.append(tile(J, K))
+                gd.append(tile(I, J))
+                gk.append(K)
+    bp = BK.build_block_plan(np.array(ga), np.array(gb), np.array(gd),
+                             np.array(gk), keys % nbc, keys // nbc, keys,
+                             nbc, keys.size, gate=100.0)
+    assert bp.n_block_pairs == len(ga)
+    plan = BK.block_plan(bp, keys % nbc, dev)
+    assert len(plan) == 1 and plan[0].nslot > 0
+    rng = np.random.default_rng(seed)
+    pool = torch.tensor(rng.standard_normal((keys.size, T, T)),
+                        dtype=torch.float32, device=dev)
+    d = torch.tensor(rng.uniform(0.5, 2.0, (nbc, T)), dtype=torch.float32,
+                     device=dev)
+    return pool, plan, d
+
+
 @pytest.mark.parametrize("T", [32, 64, 128])
 @pytest.mark.parametrize("upd", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
 @pytest.mark.parametrize("kind", [Factorization.LLT, Factorization.LDLT],
                          ids=["plain", "d"])
-def test_k5_matches_twin(cuda, T, upd, kind):
-    """K5 on the busiest level's block plan with every entry kept (gate
-    100) and chunks of 16 entries."""
-    s, lv = _rl_level(T, cuda, kind, nx=12)
-    lay, f = s.layout, s.factors
-    bp = BK.build_block_plan(lv.gemm_a, lv.gemm_b, lv.gemm_d, lv.gemm_k,
-                             lay.blk_row, lay.blk_col, lay.keys, lay.nbc,
-                             lay.npool, chunk=16, gate=100.0)
-    plan = BK.block_plan(bp, lay.blk_row, cuda)
-    assert plan and bp.n_block_pairs == lv.gemm_a.size
-    kw = {"d": f.d} if kind == Factorization.LDLT else {}
+@pytest.mark.parametrize("case", ["level", "planted"])
+def test_k5_matches_twin(cuda, T, upd, kind, case):
+    """``level``: K5 on the busiest level's block plan with every entry
+    kept (gate 100) and chunks of 16 entries; ``planted``: a block row
+    whose dst segments are cut into pieces (:func:`_planted_block`).
+    Two runs bit-identical."""
+    if case == "planted":
+        pool, plan, d = _planted_block(T, cuda)
+        kw = {"d": d} if kind == Factorization.LDLT else {}
+    else:
+        s, lv = _rl_level(T, cuda, kind, nx=12)
+        lay, f = s.layout, s.factors
+        bp = BK.build_block_plan(lv.gemm_a, lv.gemm_b, lv.gemm_d, lv.gemm_k,
+                                 lay.blk_row, lay.blk_col, lay.keys, lay.nbc,
+                                 lay.npool, chunk=16, gate=100.0)
+        plan = BK.block_plan(bp, lay.blk_row, cuda)
+        assert plan and bp.n_block_pairs == lv.gemm_a.size
+        pool = f.pool
+        kw = {"d": f.d} if kind == Factorization.LDLT else {}
     before = BK.gemm_scatter_block.launches
-    got = BK.gemm_scatter_block(f.pool.clone(), plan, upd, **kw)
+    got = BK.gemm_scatter_block(pool.clone(), plan, upd, **kw)
     assert BK.gemm_scatter_block.launches == before + len(plan)
-    ref = BK.gemm_scatter_block_ref(f.pool.clone(), plan, upd, **kw)
-    _close_dst(got, ref, torch.cat([c.pairs()[2] for c in plan]))
+    assert torch.equal(got, BK.gemm_scatter_block(pool.clone(), plan, upd,
+                                                  **kw))
+    ref = BK.gemm_scatter_block_ref(pool.clone(), plan, upd, **kw)
+    _close_dst(got, ref, torch.cat([c.seg_dst for c in plan]))
 
 
 @pytest.mark.parametrize("T", [32, 64, 128])
