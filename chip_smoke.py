@@ -10,16 +10,18 @@ prints the final ``ok`` line:
    limit (nvidia-smi);
 2. build: compiles the hand-written CUDA kernels K1-K13 from ``csrc/``
    (one nvcc per source, in parallel; ptxas registers, shared memory and
-   spills, and K1's, K3's and K5's HMMA counts from ``cuobjdump -sass``
-   where the toolkit has it, K5's those of K3's kernel with fp32
-   operands: none fails) and
+   spills, and K1's, K3's, K5's, K10's and K12's HMMA counts from
+   ``cuobjdump -sass`` where the toolkit has it, K5's those of K3's
+   kernel with fp32 operands, K10's those with fp32 a and bf16 b: none
+   fails) and
    the port's native host library (g++; prints whether it was built or
    the Python ordering runs);
 3. kernels: each kernel against its plain PyTorch twin on the same inputs,
    max|d| <= 1e-4 max|ref| for K1 and K3, 1e-5 for K2 (summation order
-   only) and K4 (plus equal clamp counts); K1, K2, K3, K4 and K5 also
-   run twice and must repeat bit for bit (K3, K4 and K5 wherever they
-   are checked, phases 7, 8, 11 and 13 too), and K2 must launch once a
+   only) and K4 (plus equal clamp counts); K1, K2, K3, K4, K5, K10 and
+   K12 also run twice and must repeat bit for bit (K3, K4, K5 and K10
+   wherever they are checked, phases 7, 8, 11 and 13 too; K12 in phase
+   14), and K2 must launch once a
    sweep direction: on the
    poisson_3d(24) T=128 layout, K1 (left-looking E2) on the busiest
    level's chunks and the dense-tail pre-pass, bf16 and fp32 updates,
@@ -128,14 +130,16 @@ prints the final ``ok`` line:
    about 3 pairs) and on the busiest right-looking level of phase 12's
    stream solver (its factored pool), bf16 and fp32, every variant of
    phase 3's slice 4 (K3 G=1/2, ``ab_pack`` G=1/2/4, K9, K10) against its
-   twin (1e-4 max|ref|), then kernel and twin timed and bound; the
-   launches are those of the timed runs, counted from 0;
+   twin (1e-4 max|ref|; K3 and K10 also twice, bit for bit), then kernel
+   and twin timed and bound; the launches are those of the timed runs,
+   counted from 0;
 14. operand-cache harness (the reference's ``exp_cache.py`` and
    ``exp_mp.py``) on phase 13's poisson level with its bf16 panel stream:
    K11 (``gemm_scatter_vcache``, chunk 1536, group 2) and K12
    (``gemm_scatter_mp`` ``loop`` and ``dot2``, chunk 1536, G = 4 and 8),
    each against its twin and against ``kernels.gemm_scatter`` with bf16
-   operands (1e-4 max|ref|), beside the reference's K3 baselines (pools
+   operands (1e-4 max|ref|; K12 also twice, bit for bit), beside the
+   reference's K3 baselines (pools
    at G=2; ``xab`` at chunk 1536 and 6144); kernels and twins timed and
    bound, the cache's size (CT, MiB) and the mp padding logged; the
    launches those of the timed runs, counted from 0;
@@ -1410,7 +1414,8 @@ def check_rightlook_kernels(dev, errs):
                 for dst, _, _, chunks, kw in steps:
                     errs[key] = max(errs[key], check_e2(
                         label, run, ref, pools[dst], chunks, upd,
-                        f"{kind.name} {dst} {str(upd)[6:]}", **kw))
+                        f"{kind.name} {dst} {str(upd)[6:]}",
+                        repeat=key == "K10", **kw))
             if kind == LU:
                 continue
             bp = BK.build_block_plan(ga, gb, gd, gk, lay.blk_row,
@@ -1788,7 +1793,7 @@ def ab_harness(solver, dev, errs):
                     f, a, b, d, None, None, dev):
                 out[name, str(upd)[6:], label] = rl_checked(
                     f"{label} {name}", run, ref, steps, pools, upd, T, errs,
-                    key, repeat=key.startswith("K3"))
+                    key, repeat=key.startswith("K3") or key == "K10")
     del P
     return out
 
@@ -1804,8 +1809,9 @@ def cache_harness(solver, dev, errs):
     with bf16 operands (``TOL_E2`` of max|ref|), beside the reference's
     baselines: K3 on the pools at G=2 (exp_cache.py:232), K3 ``xab`` on
     the 1536-pair schedule (:235) and at chunk 6144 (exp_mp.py:329).
-    Every case's kernel and twin timed (CUDA events, a warm-up, mean of
-    5), the level's work bound by :func:`e2_work` (the cache counted as
+    K12 runs twice and must repeat bit for bit.  Every case's kernel and
+    twin timed (CUDA events, a warm-up, mean of 5), the level's work
+    bound by :func:`e2_work` (the cache counted as
     the bf16 stream, the pools as fp32); launches counted from 0 over the
     timed runs.  Returns {label: (ms, twin ms, bound, launches)}."""
     import torch
@@ -1879,6 +1885,8 @@ def cache_harness(solver, dev, errs):
     out = {}
     for label, run, run_ref, args, key, bd in cases:
         got = run(f.pool.clone(), *args)
+        if key == "K12" and not torch.equal(got, run(f.pool.clone(), *args)):
+            raise AssertionError(f"{label}: two runs differ")
         ref = run_ref(f.pool.clone(), *args)
         torch.cuda.synchronize()
         e_twin = float((got - ref).abs().max())
@@ -1997,11 +2005,14 @@ def probe_harness(dev, errs):
     return out
 
 
+_SASS = {}  # cuobjdump -sass of each library, dumped once
+
+
 def sass_count(build, kernel, ops, also=None):
     """How many of each SASS opcode of ``ops`` the library's ``kernel``
-    functions hold (``cuobjdump -sass``; ``also``: only those whose name
-    holds one of these strings too), and how many functions that is, or
-    why it cannot say."""
+    functions hold (``cuobjdump -sass``, run once a library; ``also``:
+    only those whose name holds one of these strings too), and how many
+    functions that is, or why it cannot say."""
     import shutil
     import subprocess
 
@@ -2009,8 +2020,10 @@ def sass_count(build, kernel, ops, also=None):
     lib = os.path.join(build._OUT, f"libpastix_kernels_{build._digest()}.so")
     if not os.path.isfile(tool):
         return "cuobjdump not found"
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True, timeout=300).stdout
+    if lib not in _SASS:
+        _SASS[lib] = subprocess.run([tool, "-sass", lib], capture_output=True,
+                                    text=True, timeout=300).stdout
+    sass = _SASS[lib]
     counts, inside = dict.fromkeys(ops + ("functions",), 0), False
     for line in sass.splitlines():
         if "Function :" in line:
@@ -2081,11 +2094,16 @@ def main() -> int:
                 in line or line.startswith("---")):
             log(f"  ptxas: {line.strip()}")
     # K5 runs K3's kernel with fp32 operands: its instantiations with
-    # A_F32 and B_F32 set (mangled, or demangled)
+    # A_F32 and B_F32 set (mangled, or demangled); K10's scaled bf16
+    # updates those with A_F32 set and B_F32 not (after BN)
+    mixed = tuple(f"Li{bn}ELb1ELb0E" for bn in (32, 64, 128)) + tuple(
+        f"{bn}, true, false" for bn in (32, 64, 128))
     for kname, src, also in (
             ("K1", "ll_gemm_scatter", None),
             ("K3", "pipelined_gemm_scatter", None),
-            ("K5", "pipelined_gemm_scatter", ("Lb1ELb1E", "true, true"))):
+            ("K5", "pipelined_gemm_scatter", ("Lb1ELb1E", "true, true")),
+            ("K10 d", "pipelined_gemm_scatter", mixed),
+            ("K12", "cache_gemm_scatter", None)):
         counts = sass_count(_build, src, ("HMMA", "HGMMA"), also)
         log(f"{kname} SASS: {counts}")
         if isinstance(counts, dict) and not counts["HMMA"]:
@@ -2223,13 +2241,18 @@ def main() -> int:
     # list or a block-sparse triangular sweep: library_ms is null but for
     # K4 LU (lu_factor_ex without pivoting) and K13 (index_select of the
     # same copies)
-    def entry(name, src, replaces, launches, err, timed, lib=None):
+    # seg: the row runs the tensor-core body seg_mma.cuh from another
+    # kernel's source (K5, K10's bf16 updates, K12)
+    def entry(name, src, replaces, launches, err, timed, lib=None,
+              seg=False):
         ms, plain, bd = timed[:3]
+        body = {"body": "pastix_tpu_torch/csrc/seg_mma.cuh"} if seg else {}
         return {"name": name, "route": "cuda",
                 "source": f"pastix_tpu_torch/csrc/{src}",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": bd[0], "bound_by": bd[1], "library_ms": lib}
+                "bound_ms": bd[0], "bound_by": bd[1], "library_ms": lib,
+                **body}
 
     k1_at = "pastix_tpu/numeric/leftlook.py:469"
     k2_at = "pastix_tpu/numeric/sweep_kernels.py:241"
@@ -2279,9 +2302,8 @@ def main() -> int:
         launches_m, _, timed = rl[kind][mode]
         kernels.append(entry(name, f"{src}.cu", at,
                              launches_m[RL_KERNEL[mode]],
-                             max(errs[k3key], errs[f"{kind} {mode}"]), timed))
-        if mode == "block":
-            kernels[-1]["body"] = "pastix_tpu_torch/csrc/seg_mma.cuh"
+                             max(errs[k3key], errs[f"{kind} {mode}"]), timed,
+                             seg=mode == "block"))
     # slice 4: K7 and K8 with launches from the fused left-looking path;
     # K9, K10 and ab_pack from the harness, each row the poisson level's
     # case in bf16, its launches too (the other cases in the log)
@@ -2294,28 +2316,30 @@ def main() -> int:
               errs["K8"], k8),
         entry("gemm_scatter_fused", "segment_gemm_scatter.cu", f"{at}:186",
               ab_row("K9")[3], errs["K9"], ab_row("K9")),
-        entry("gemm_scatter_blockspec", "segment_gemm_scatter.cu",
-              f"{at}:806", ab_row("K10")[3], errs["K10"], ab_row("K10")),
+        entry("gemm_scatter_blockspec", f"{k3}.cu", f"{at}:806",
+              ab_row("K10")[3], errs["K10"], ab_row("K10"), seg=True),
+        entry("gemm_scatter_blockspec[fp32]", f"{k3}.cu", f"{at}:806",
+              ab["poisson level", "float32", "K10"][3], errs["K10"],
+              ab["poisson level", "float32", "K10"]),
         entry(f"{k3}[ab_pack]", f"{k3}.cu", k3_at,
               ab_row("K3 ab_pack G=1")[3], errs["K3pack"],
               ab_row("K3 ab_pack G=1")),
     ]
-    # the measurement scripts: K11 and K12 at G=4 from phase 14, K13 at
-    # S=1, D=2 from phase 15 (the other cases in the log)
+    # the measurement scripts: K11 from phase 14, K12 at G=4 and 8, K13
+    # at S=1, D=2 from phase 15 (the other cases in the log)
     rows, S, D, steps, reps, ctas, piece, ms, plain, bd, lib, n = probes[0]
-    kernels += [
-        entry("vcache_gemm_scatter", f"{k3}.cu",
-              "exp_cache.py:181", cache["K11"][3], errs["K11"],
-              cache["K11"]),
-        entry("mp_gemm_scatter[loop]", "cache_gemm_scatter.cu",
-              "exp_mp.py:267", cache["K12 loop G=4"][3], errs["K12"],
-              cache["K12 loop G=4"]),
-        entry("mp_gemm_scatter[dot2]", "cache_gemm_scatter.cu",
-              "exp_mp.py:267", cache["K12 dot2 G=4"][3], errs["K12"],
-              cache["K12 dot2 G=4"]),
-        entry("dma_probe", "dma_probe.cu", "exp_dma.py:76", n, errs["K13"],
-              (ms, plain, bd), lib),
-    ]
+    kernels.append(entry("vcache_gemm_scatter", f"{k3}.cu",
+                         "exp_cache.py:181", cache["K11"][3], errs["K11"],
+                         cache["K11"]))
+    for G in (4, 8):
+        for variant in ("loop", "dot2"):
+            case = cache[f"K12 {variant} G={G}"]
+            kernels.append(entry(
+                f"mp_gemm_scatter[{variant}]" + ("" if G == 4 else f"[G={G}]"),
+                "cache_gemm_scatter.cu", "exp_mp.py:267", case[3],
+                errs["K12"], case, seg=True))
+    kernels.append(entry("dma_probe", "dma_probe.cu", "exp_dma.py:76", n,
+                         errs["K13"], (ms, plain, bd), lib))
     for label, (ms, plain, bd, n) in cache.items():
         log(f"cache harness {label}: " + json.dumps(
             {"ms": ms, "plain_ms": plain, "bound_ms": bd[0],

@@ -115,7 +115,7 @@ def get_lib() -> ctypes.CDLL:
     lib.pastix_sweep_run.argtypes = [P] * 10 + [L, L, I, I, I, I, I, P]
     lib.pastix_sweep_run.restype = I
     lib.pastix_pipelined_gemm_scatter.argtypes = [P] * 15 + [L, L, I, I, I,
-                                                              I, P]
+                                                              I, I, P]
     lib.pastix_pipelined_gemm_scatter.restype = I
     lib.pastix_slab_gemm_scatter.argtypes = [P] * 9 + [L, I, I, P]
     lib.pastix_slab_gemm_scatter.restype = I
@@ -125,7 +125,7 @@ def get_lib() -> ctypes.CDLL:
     lib.pastix_chol_inv.restype = I
     lib.pastix_segment_gemm_scatter.argtypes = [P] * 9 + [L, I, I, P]
     lib.pastix_segment_gemm_scatter.restype = I
-    lib.pastix_mp_gemm_scatter.argtypes = [P] * 6 + [L, I, L, I, I, P]
+    lib.pastix_mp_gemm_scatter.argtypes = [P] * 13 + [L, L, I, I, P]
     lib.pastix_mp_gemm_scatter.restype = I
     lib.pastix_dma_probe.argtypes = [P] * 3 + [I] * 5 + [L, I, I, P]
     lib.pastix_dma_probe.restype = I

@@ -11,168 +11,88 @@
 // segment are summed (variant loop: G T-deep dots added; dot2: one
 // (T, G.T) x (G.T, T) contraction), then subtracted from the
 // accumulator, which holds the dst tile from the segment's first step to
-// its last.  The host fills the cache buffer per chunk (buf[:nu] =
-// xab[cu], the rest zero), as the reference gathers Xc in XLA outside
-// its kernel, then launches once per chunk.
+// its last.  Here the host fills the cache buffer per chunk (buf[:nu] =
+// xab[cu]; no pair of this kernel reads the zero slot), as the reference
+// gathers Xc in XLA outside its kernel, then launches once per chunk.
 //
 // K11, exp_cache.py's gemm_scatter_vcache (mk_kernel), reads the same
 // kind of cache with one pair a step: numeric/cache.py launches K3
-// (pipelined_gemm_scatter.cu) on the filled buffer for it, a and b both
-// read from the buffer by slot, so this file holds K12 only.
-//
-// Where the data sits on Hopper: the reference keeps the chunk's Xc in
-// VMEM.  One SM has 227 KB of shared memory, and the cache is CT x 32 KB
-// at T = 128 (megabytes), so the card's analog of VMEM is the 50 MB L2:
-// the buffer is written just before the launch and the chunk's CTAs read
-// it while it is resident there (chip_smoke.py logs CT and the buffer's
-// MiB against 50 MB).  An L2 persistence window (cudaAccessPolicyWindow)
-// over the buffer is later work.
+// (pipelined_gemm_scatter.cu) on the filled buffer for it, so this file
+// holds K12 only.
 //
 // What bounds it on an H100 at T = 128: a pair is 2 T^3 = 4.2 MFLOP on
-// two 32 KB bf16 tiles that repeat across the chunk's pairs; counted as
+// two 32 KB bf16 tiles that repeat across the chunk's pairs.  Counted as
 // the level's work (each distinct stream tile read once, each dst tile
-// read and written once) it is bound by bytes, as K3 on the stream.  This
-// first design multiplies on the fp32 CUDA cores (segment_gemm.cuh's
-// per-pair product, shared with K3, K9 and K10, so the tensor-core
-// rewrite of that header covers K12 too).
+// read and written once) it is bound by bytes: 0.656 ms on the busiest
+// level of poisson_3d(64) (38,008 pairs), 64 FLOP a byte read against
+// the 295 at which the bf16 tensor cores (989 TFLOP/s) would outrun
+// device memory.  The reference keeps the chunk's Xc in VMEM; the card's
+// analog is the 50 MB L2, which holds the buffer by size (CT x 32 KB):
+// it is written just before the launch and the chunk's CTAs read it
+// while it is resident there.  So what has to fall is each pair's
+// latency and the bytes in flight, as for K3.
 //
-// Design: one CTA per (dst segment, 64 x 64 block of the dst tile), as
-// K3.  A chunk's segments have distinct dst tiles and read only the
-// cache, so CTAs need no atomics.  A segment cut by a chunk boundary
-// writes its dst in two launches, ordered on one stream.  The CTA loads
-// its dst block into registers at the segment's first step, sums each
-// step's G products into a step tile and subtracts that from the block,
-// then writes it once: the reference's order.  loop and dot2 differ only
-// in summation order: loop sums each pair into its own tile and adds the
-// G tiles, dot2 runs one G.T-deep sum.  Null pairs (slot zslot, the zero
-// slot) are skipped: their product is zero.
+// Design: the tensor-core body of K1 and K3 (seg_mma.cuh) in its step
+// mode.  The host drops the null pairs (their product is exactly zero)
+// and marks each step's last real pair; the CTA runs a piece of a dst
+// segment on mma.sync with the operands streaming through a 3-stage
+// cp.async ring (ldmatrix from bf16), sums each step in a step
+// accumulator (dot2: one chain over the step's pairs; loop: each pair's
+// chain in a pair accumulator, added to the step's), adds the step to
+// the piece's sum, and writes the dst once.  Segments are cut into
+// pieces at step boundaries only (numeric/cache.mp_plan, by
+// leftlook.ll_pieces' rule), so the longest segment no longer holds its
+// whole chunk; a cut segment's last piece adds the partial sums in piece
+// order, so runs repeat bit for bit.  A CTA takes 64 dst columns at
+// T = 128 (128 x 64 halves): the three accumulator sets then take 96
+// floats a thread, and the kernel is bounded to 128 registers so that
+// two CTAs share an SM (without the bound loop took 158 and ran 1.3x
+// slower); at T = 32 and 64 the whole tile.  An L2 persistence window
+// (cudaAccessPolicyWindow) over the buffer is later work: it is a
+// device-wide setting.
 
-#include "segment_gemm.cuh"
+#include "seg_mma.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void zero(float (&t)[4][4]) {
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) t[u][v] = 0.f;
-}
-
-// the thread's 4 x 4 elements of dst[r0:r0+BM, c0:c0+BM], read or written
-template <int T, bool STORE>
-__device__ __forceinline__ void block_io(float* dst, float (&t)[4][4],
-                                         int r0, int c0) {
-  constexpr int BM = seg::Shape<T>::BM;
-  const int tx = threadIdx.x % (BM / 4);
-  const int ty = threadIdx.x / (BM / 4);
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      float* p = dst + (int64_t)(r0 + ty * 4 + u) * T + c0 + tx * 4 + v;
-      if (STORE)
-        *p = t[u][v];
-      else
-        t[u][v] = *p;
-    }
-}
-
-template <int T, bool DOT2>
-__global__ void __launch_bounds__(seg::Shape<T>::NT)
-mp_kernel(float* __restrict__ pool, const bf16* __restrict__ buf,
-          const int64_t* __restrict__ seg_ptr,
-          const int64_t* __restrict__ seg_dst,
-          const int64_t* __restrict__ pos_a,
-          const int64_t* __restrict__ pos_b, int G, int64_t zslot) {
-  constexpr int BM = seg::Shape<T>::BM;
-  constexpr int NB = seg::Shape<T>::NB;
-  constexpr int64_t TT = (int64_t)T * T;
-  __shared__ float As[seg::BK][BM + 1];
-  __shared__ float Bs[seg::BK][BM + 1];
-  const int64_t sg = blockIdx.x;
-  const int r0 = (blockIdx.y / NB) * BM;
-  const int c0 = (blockIdx.y % NB) * BM;
-  float* dst = pool + seg_dst[sg] * TT;
-  float acc[4][4], step[4][4];
-  block_io<T, false>(dst, acc, r0, c0);
-  for (int64_t s = seg_ptr[sg]; s < seg_ptr[sg + 1]; ++s) {
-    zero(step);
-    for (int u = 0; u < G; ++u) {
-      const int64_t pa = pos_a[s * G + u], pb = pos_b[s * G + u];
-      if (pa == zslot || pb == zslot) continue;  // a null pair: zero
-      if (DOT2) {
-        seg::pair_product<T, bf16, false, false>(step, buf + pa * TT,
-                                                 buf + pb * TT, nullptr, r0,
-                                                 c0, As, Bs);
-      } else {
-        float one[4][4];
-        zero(one);
-        seg::pair_product<T, bf16, false, false>(one, buf + pa * TT,
-                                                 buf + pb * TT, nullptr, r0,
-                                                 c0, As, Bs);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) step[i][j] += one[i][j];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] -= step[i][j];
+template <int STEP>
+cudaError_t dispatch_steps(const Chunk& x, int T, cudaStream_t s) {
+  switch (T) {
+    case 32:
+      return launch_mma<32, 32, false, false, false, false, STEP>(x, s);
+    case 64:
+      return launch_mma<64, 64, false, false, false, false, STEP>(x, s);
+    case 128:
+      return launch_mma<128, 64, false, false, false, false, STEP>(x, s);
+    default: return cudaErrorInvalidValue;
   }
-  block_io<T, true>(dst, acc, r0, c0);
-}
-
-template <int T>
-cudaError_t launch_mp(float* pool, const bf16* buf, const int64_t* sp,
-                      const int64_t* sd, const int64_t* pa,
-                      const int64_t* pb, int64_t nseg, int G, int64_t zslot,
-                      int dot2, cudaStream_t s) {
-  constexpr int NB = seg::Shape<T>::NB;
-  const dim3 grid((unsigned)nseg, NB * NB);
-  if (dot2)
-    mp_kernel<T, true><<<grid, seg::Shape<T>::NT, 0, s>>>(pool, buf, sp, sd,
-                                                          pa, pb, G, zslot);
-  else
-    mp_kernel<T, false><<<grid, seg::Shape<T>::NT, 0, s>>>(pool, buf, sp, sd,
-                                                           pa, pb, G, zslot);
-  return cudaGetLastError();
 }
 
 }  // namespace
 
-// K12.  seg_ptr: step offsets of the nseg dst segments; pos_a, pos_b: G
-// cache slots a step, zslot (the zero slot) for a null pair; dot2 = 1:
-// one G.T-deep sum a step, 0: G T-deep sums added (loop).
-extern "C" int pastix_mp_gemm_scatter(void* pool, const void* buf,
-                                      const void* seg_ptr,
-                                      const void* seg_dst, const void* pos_a,
-                                      const void* pos_b, long long nseg,
-                                      int G, long long zslot, int T,
-                                      int dot2, void* stream) {
+// K12 over one chunk's real pairs (null pairs dropped), in step order.
+// buf: the chunk's (CT, T, T) bf16 cache; seg_ptr: pair offsets of the
+// nseg dst segments; pos_a, pos_b: each pair's cache slots; pair_last:
+// nonzero at each step's last pair; the piece tables, scratch and count
+// as in seg_mma.cuh's Chunk, pieces ending at step boundaries; dot2 = 1:
+// one sum over a step's pairs, 0: each pair's sum added (loop).
+extern "C" int pastix_mp_gemm_scatter(
+    void* pool, const void* buf, const void* seg_ptr, const void* seg_dst,
+    const void* pos_a, const void* pos_b, const void* pair_last,
+    const void* piece_ptr, const void* piece_seg, const void* seg_piece_ptr,
+    const void* piece_slot, void* scratch, void* count, long long nseg,
+    long long npiece, int T, int dot2, void* stream) {
   if (nseg <= 0) return 0;
-  if (nseg > 0x7fffffffLL || G < 1) return (int)cudaErrorInvalidValue;
-  auto P = (float*)pool;
-  auto B = (const bf16*)buf;
-  auto sp = (const int64_t*)seg_ptr;
-  auto sd = (const int64_t*)seg_dst;
-  auto pa = (const int64_t*)pos_a;
-  auto pb = (const int64_t*)pos_b;
+  if (nseg > 0x7fffffffLL || npiece > 0x7fffffffLL || npiece < nseg ||
+      pair_last == nullptr || piece_ptr == nullptr || count == nullptr)
+    return (int)cudaErrorInvalidValue;
+  auto I = [](const void* p) { return (const int64_t*)p; };
+  const Chunk x{(float*)pool, buf, buf, I(seg_ptr), I(seg_dst), I(pos_a),
+                I(pos_b), nullptr, nullptr, nullptr, I(piece_ptr),
+                I(piece_seg), I(seg_piece_ptr), I(piece_slot),
+                (float*)scratch, (int*)count, nseg, npiece, T,
+                I(pair_last)};
   auto s = (cudaStream_t)stream;
-  switch (T) {
-    case 32:
-      return (int)launch_mp<32>(P, B, sp, sd, pa, pb, nseg, G, zslot, dot2,
-                                s);
-    case 64:
-      return (int)launch_mp<64>(P, B, sp, sd, pa, pb, nseg, G, zslot, dot2,
-                                s);
-    case 128:
-      return (int)launch_mp<128>(P, B, sp, sd, pa, pb, nseg, G, zslot, dot2,
-                                 s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)(dot2 ? dispatch_steps<STEP_DOT2>(x, T, s)
+                    : dispatch_steps<STEP_LOOP>(x, T, s));
 }

@@ -7,7 +7,11 @@
 // compact: per-chunk gathers of the distinct operand tiles; ab_pack:
 // stacked (a, b) pairs).  numeric/cache.py also launches it for K11
 // (exp_cache.py's gemm_scatter_vcache): a and b read by slot from one
-// bf16 array, the chunk's operand cache.
+// bf16 array, the chunk's operand cache; numeric/fused.py for K10
+// (gemm_scatter_blockspec): a and b read from the chunk's compact
+// gathers, b in bf16, a in bf16 too unless it is scaled (then fp32: its
+// twin rounds round(a d)), with bf16 updates; both fp32 with fp32
+// updates; and numeric/block.py for K5.
 // Semantics: for every dst segment of a chunk (pairs sorted by dst on the
 // host), subtract the sum of its pairs' op(a) . op(b)^T over the full
 // T x T dst tile, where op rounds an fp32 tile to bf16 when the update
@@ -51,7 +55,8 @@
 // fp32 updates (update_dtype None: the shift-invert LDL^T Schur residue)
 // keep the first design's FMA body unchanged: one CTA per (segment,
 // 64 x 64 block of the dst tile) holding its block in registers over the
-// segment (segment_gemm.cuh, shared with K9/K10).  The port's fp32 is
+// segment (segment_gemm.cuh, shared with K9; K10's fp32 updates run
+// here).  The port's fp32 is
 // full fp32, with TF32 off, so it has no tensor-core route.
 
 #include "seg_mma.cuh"
@@ -121,8 +126,9 @@ cudaError_t dispatch_fp32(const Chunk& x, int T, cudaStream_t s) {
 // columns a CTA (T, or 64 at T = 128); bf16 = 0: fp32 updates on the CUDA
 // cores, a CTA per segment and 64 x 64 block (the piece arguments unused).
 // a_src, b_src: the tiles a and b are read from, (n, T, T) arrays of
-// fp32 (op_bf16 = 0: the pools, or fp32 operand arrays) or of bf16
-// (op_bf16 = 1: operand arrays rounded when they were made).
+// fp32 (a_bf16, b_bf16 = 0: the pools, or fp32 operand arrays) or of
+// bf16 (1: operand arrays rounded when they were made); both of one
+// dtype, or (K10, scaled bf16 updates) a fp32 and b bf16.
 // d != NULL: a's columns scaled by d[pair_k * T + k].
 extern "C" int pastix_pipelined_gemm_scatter(
     void* pool, const void* a_src, const void* b_src, const void* seg_ptr,
@@ -130,7 +136,7 @@ extern "C" int pastix_pipelined_gemm_scatter(
     const void* d, const void* pair_k, const void* piece_ptr,
     const void* piece_seg, const void* seg_piece_ptr, const void* piece_slot,
     void* scratch, void* count, long long nseg, long long npiece, int T,
-    int bf16, int op_bf16, int bn, void* stream) {
+    int bf16, int a_bf16, int b_bf16, int bn, void* stream) {
   if (nseg <= 0) return 0;
   if (nseg > 0x7fffffffLL || npiece > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -145,14 +151,18 @@ extern "C" int pastix_pipelined_gemm_scatter(
                 (int*)count, nseg, npiece, T};
   auto s = (cudaStream_t)stream;
   const bool sc = d != nullptr;
+  if (a_bf16 != b_bf16) {  // only K10's scaled fp32 a with bf16 b
+    if (!bf16 || !sc || a_bf16) return (int)cudaErrorInvalidValue;
+    return (int)dispatch_mma<true, false, true, false>(x, T, bn, s);
+  }
   if (!bf16) {
-    if (op_bf16)
+    if (a_bf16)
       return (int)(sc ? dispatch_fp32<__nv_bfloat16, true>(x, T, s)
                       : dispatch_fp32<__nv_bfloat16, false>(x, T, s));
     return (int)(sc ? dispatch_fp32<float, true>(x, T, s)
                     : dispatch_fp32<float, false>(x, T, s));
   }
-  if (op_bf16)
+  if (a_bf16)
     return (int)(sc ? dispatch_mma<false, false, true, false>(x, T, bn, s)
                     : dispatch_mma<false, false, false, false>(x, T, bn, s));
   return (int)(sc ? dispatch_mma<true, true, true, false>(x, T, bn, s)

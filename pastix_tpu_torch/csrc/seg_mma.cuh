@@ -1,9 +1,10 @@
 // The tensor-core body of the segment-walking E2 kernels with bf16
-// updates: K1 (ll_gemm_scatter.cu, left-looking, with row windows) and K3
-// (pipelined_gemm_scatter.cu, right-looking, full tiles; K11 launches it
-// on its operand cache).  pool[dst] -= sum over a piece of a dst segment
-// of op(a diag(d)) . op(b)^T, products by mma.sync m16n8k16 (bf16 in,
-// fp32 accumulators in registers; mma_tile.cuh).
+// updates: K1 (ll_gemm_scatter.cu, left-looking, with row windows), K3
+// (pipelined_gemm_scatter.cu, right-looking, full tiles; K5, K10 and K11
+// launch it on their own operands) and K12 (cache_gemm_scatter.cu, in
+// steps of pairs).  pool[dst] -= sum over a piece of a dst segment of
+// op(a diag(d)) . op(b)^T, products by mma.sync m16n8k16 (bf16 in, fp32
+// accumulators in registers; mma_tile.cuh).
 //
 // - One CTA per piece of a dst segment and BN dst columns (T, or 64 at
 //   T = 128).  Its warps share the T x BN output, each warp a 32 x BN/2
@@ -28,6 +29,13 @@
 // - WINDOW (K1): rows of a outside [rl, rl + H) enter as zeros (the copy
 //   reads nothing for them), and a warp issues no mma for a 16-row group
 //   wholly outside the window.  Without it every pair is a full tile.
+// - STEP (K12): the pairs come in steps, pair_last set at each step's
+//   last pair, and pieces end at step boundaries.  A step's products are
+//   summed in a step accumulator (STEP_DOT2: one chain over the step's
+//   depth; STEP_LOOP: each pair's T-deep chain in a pair accumulator,
+//   added to the step's), which is then added to the piece's sum: the
+//   reference's order, in three fragment sets a thread (seg_mma_steps,
+//   bounded to two CTAs an SM).
 #pragma once
 
 #include <type_traits>
@@ -63,9 +71,28 @@ struct Chunk {
   int64_t nseg;
   int64_t npiece;
   int H;  // row-window height (WINDOW)
+  const int64_t* pair_last;  // nonzero at each step's last pair (STEP)
 };
 
 constexpr int BK = 32;  // k slice
+// how a piece's pairs are summed: one chain over all of them (K1, K3), or
+// in steps (K12; pair_last ends a step)
+constexpr int ONE_SUM = 0, STEP_DOT2 = 1, STEP_LOOP = 2;
+
+// d += s, then s = 0 (a thread's fragments of one accumulator set)
+template <int MI, int NI>
+__device__ __forceinline__ void drain(float (&d)[MI][NI][4],
+                                      float (&s)[MI][NI][4]) {
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        d[mi][ni][e] += s[mi][ni][e];
+        s[mi][ni][e] = 0.f;
+      }
+}
 
 template <int T, int BN, bool A_F32, bool B_F32, bool SCALED>
 struct Tc {
@@ -87,9 +114,10 @@ struct Tc {
   static_assert(NI % 2 == 0 && MI >= 1, "warp tile");
 };
 
-template <int T, int BN, bool A_F32, bool B_F32, bool SCALED, bool WINDOW>
-__global__ void __launch_bounds__((Tc<T, BN, A_F32, B_F32, SCALED>::NT))
-seg_mma_kernel(const Chunk x) {
+// the body of a CTA (the kernels below)
+template <int T, int BN, bool A_F32, bool B_F32, bool SCALED, bool WINDOW,
+          int STEP>
+__device__ __forceinline__ void seg_mma_body(const Chunk x) {
   const int64_t* __restrict__ pair_a = x.pair_a;
   const int64_t* __restrict__ pair_b = x.pair_b;
   const int64_t* __restrict__ pair_rl = x.pair_rl;
@@ -103,6 +131,7 @@ seg_mma_kernel(const Chunk x) {
   constexpr int LD = mma_tile::LD;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int st_rl[C::STAGES];  // row window of each stage's pair
+  __shared__ int st_end[C::STAGES];  // a stage that ends a step (STEP)
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -120,13 +149,16 @@ seg_mma_kernel(const Chunk x) {
   int64_t ca = __ldg(pair_a + p0), cb = __ldg(pair_b + p0);
   int crl = WINDOW ? (int)__ldg(pair_rl + p0) : 0;
   int64_t ck = SCALED ? __ldg(pair_k + p0) : 0;
+  bool cl = STEP != ONE_SUM && __ldg(x.pair_last + p0) != 0;
   int64_t na = 0, nb = 0, nk = 0;
   int nrl = 0;
+  bool nl = false;
   if (p0 + 1 < p_end) {
     na = __ldg(pair_a + p0 + 1);
     nb = __ldg(pair_b + p0 + 1);
     if (WINDOW) nrl = (int)__ldg(pair_rl + p0 + 1);
     if (SCALED) nk = __ldg(pair_k + p0 + 1);
+    if (STEP != ONE_SUM) nl = __ldg(x.pair_last + p0 + 1) != 0;
   }
 
   auto issue = [&](int stage) {
@@ -150,6 +182,7 @@ seg_mma_kernel(const Chunk x) {
                              d + ck * T + k0 + tid * 4, true);
     }
     if (WINDOW && tid == 0) st_rl[stage] = crl;
+    if (STEP != ONE_SUM && tid == 0) st_end[stage] = cl && iks == C::KS - 1;
     if (++iks == C::KS) {
       iks = 0;
       if (++ip < p_end) {
@@ -157,23 +190,31 @@ seg_mma_kernel(const Chunk x) {
         cb = nb;
         crl = nrl;
         ck = nk;
+        cl = nl;
         if (ip + 1 < p_end) {
           na = __ldg(pair_a + ip + 1);
           nb = __ldg(pair_b + ip + 1);
           if (WINDOW) nrl = (int)__ldg(pair_rl + ip + 1);
           if (SCALED) nk = __ldg(pair_k + ip + 1);
+          if (STEP != ONE_SUM) nl = __ldg(x.pair_last + ip + 1) != 0;
         }
       }
     }
   };
 
-  float acc[C::MI][C::NI][4];
+  // acc: the piece's sum; STEP: sacc the step's, pacc (STEP_LOOP) the
+  // pair's, which the products go into
+  float acc[C::MI][C::NI][4], sacc[C::MI][C::NI][4], pacc[C::MI][C::NI][4];
 #pragma unroll
   for (int mi = 0; mi < C::MI; ++mi)
 #pragma unroll
     for (int ni = 0; ni < C::NI; ++ni)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        acc[mi][ni][e] = 0.f;
+        if (STEP != ONE_SUM) sacc[mi][ni][e] = 0.f;
+        if (STEP == STEP_LOOP) pacc[mi][ni][e] = 0.f;
+      }
 
 #pragma unroll
   for (int s = 0; s < C::STAGES - 1; ++s) {
@@ -202,10 +243,24 @@ seg_mma_kernel(const Chunk x) {
       for (int mi = 0; mi < C::MI; ++mi) live[mi] = true;
     }
     const float* dk = SCALED ? (const float*)(base + C::SA + C::SB) : nullptr;
+    auto slice = [&](float (&t)[C::MI][C::NI][4]) {
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16)
-      mma_tile::warp_mma_k16<C::MI, C::NI, A_F32, B_F32>(
-          acc, base, base + C::SA, wm * C::WM, wn * C::WN, kk, dk, live);
+      for (int kk = 0; kk < BK; kk += 16)
+        mma_tile::warp_mma_k16<C::MI, C::NI, A_F32, B_F32>(
+            t, base, base + C::SA, wm * C::WM, wn * C::WN, kk, dk, live);
+    };
+    if constexpr (STEP == STEP_LOOP)
+      slice(pacc);
+    else if constexpr (STEP == STEP_DOT2)
+      slice(sacc);
+    else
+      slice(acc);
+    if constexpr (STEP != ONE_SUM) {
+      // read before the next iteration's barrier, after which the stage
+      // and its flag are refilled
+      if (STEP == STEP_LOOP && it % C::KS == C::KS - 1) drain(sacc, pacc);
+      if (st_end[stage]) drain(acc, sacc);
+    }
   }
   mma_tile::cp_async_wait<0>();
 
@@ -274,9 +329,36 @@ seg_mma_kernel(const Chunk x) {
 }
 
 template <int T, int BN, bool A_F32, bool B_F32, bool SCALED, bool WINDOW>
+__global__ void __launch_bounds__((Tc<T, BN, A_F32, B_F32, SCALED>::NT))
+seg_mma_kernel(const Chunk x) {
+  seg_mma_body<T, BN, A_F32, B_F32, SCALED, WINDOW, ONE_SUM>(x);
+}
+
+// K12's step mode, bf16 operands: at most 128 registers a thread, so
+// that two CTAs share an SM (STEP_LOOP's three fragment sets took 158
+// and one CTA an SM without the bound; no spills with it)
+template <int T, int BN, int STEP>
+__global__ void __launch_bounds__((Tc<T, BN, false, false, false>::NT), 2)
+seg_mma_steps(const Chunk x) {
+  seg_mma_body<T, BN, false, false, false, false, STEP>(x);
+}
+
+template <int T, int BN, bool A_F32, bool B_F32, bool SCALED, bool WINDOW,
+          int STEP>
+auto seg_kernel() {
+  if constexpr (STEP == ONE_SUM)
+    return seg_mma_kernel<T, BN, A_F32, B_F32, SCALED, WINDOW>;
+  else
+    return seg_mma_steps<T, BN, STEP>;
+}
+
+template <int T, int BN, bool A_F32, bool B_F32, bool SCALED, bool WINDOW,
+          int STEP = ONE_SUM>
 cudaError_t launch_mma(const Chunk& x, cudaStream_t stream) {
+  static_assert(STEP == ONE_SUM || !(A_F32 || B_F32 || SCALED || WINDOW),
+                "the step mode takes unscaled bf16 operands");
   using C = Tc<T, BN, A_F32, B_F32, SCALED>;
-  auto kernel = seg_mma_kernel<T, BN, A_F32, B_F32, SCALED, WINDOW>;
+  auto kernel = seg_kernel<T, BN, A_F32, B_F32, SCALED, WINDOW, STEP>();
   static bool sized = false;  // once per instantiation
   if (!sized) {
     cudaError_t err = cudaFuncSetAttribute(

@@ -1,7 +1,8 @@
 // The per-pair product of the segment-walking E2 kernels on the CUDA
-// cores: K9/K10 (segment_gemm_scatter.cu, fp32 and bf16 updates) and K3's
-// fp32 updates (pipelined_gemm_scatter.cu; K3's bf16 updates run on the
-// tensor cores, seg_mma.cuh).
+// cores.  Its users: K9 (segment_gemm_scatter.cu, fp32 and bf16 updates)
+// and K3's fp32 updates (pipelined_gemm_scatter.cu), which K10's fp32
+// updates run through too.  Bf16 updates of K3, K5, K10, K11 and K12 run
+// on the tensor cores (seg_mma.cuh).
 //
 // A CTA of NT = (BM / 4)^2 threads owns one BM x BM block (rows r0.., cols
 // c0..) of a T x T dst tile and keeps it in registers, 4 x 4 a thread,
@@ -13,9 +14,10 @@
 //
 // What bounds it: the products run on the fp32 CUDA cores (67 TFLOP/s at
 // best, 4 x 4 a thread), and each slice is loaded synchronously, two
-// barriers a slice with no load in flight during the products: K9 and
-// K10 run 9-11x above their byte bounds on an H100 (PERF.md §6).  Moving
-// them onto seg_mma.cuh, as K3's bf16 path did, is queued work.
+// barriers a slice with no load in flight during the products: K9 runs
+// about 9x above its byte bound on an H100 (PERF.md §6).  Moving K9's
+// bf16 updates onto seg_mma.cuh is queued work; the port's fp32 updates
+// stay full fp32 (TF32 off), so they have no tensor-core route here.
 #pragma once
 
 #include "common.cuh"

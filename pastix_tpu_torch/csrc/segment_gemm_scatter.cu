@@ -1,23 +1,19 @@
-// K9 and K10: E2 update over a dst-sorted pair list whose segments are
-// marked by flags, pool[gd] -= sum over a dst segment of op(a) . op(b)^T.
+// K9: E2 update over a dst-sorted pair list whose segments are marked by
+// flags, pool[gd] -= sum over a dst segment of op(a) . op(b)^T.
 //
-// Replaces two Pallas kernels of pastix_tpu/numeric/pallas_kernels.py,
-// each with its plain, scaled (d: LDL^T) and cross-pool (LU) variants:
-// - K9, gemm_scatter_fused (_mk_kernel_src, the round-2 E2), one pair per
-//   TPU grid step over sort_triples output: a is pool tile ga[p], b tile
-//   gb[p] of the pool itself or of the other pool of LU;
-// - K10, gemm_scatter_blockspec (_mk_blockspec_kernel), one chunk of a
-//   group-1 build_pipeline_schedule table: the host gathers the chunk's
-//   distinct a tiles (Xa, from the pool) and b tiles (Xb), fp32, as the
-//   reference does outside its kernel, and pair p reads Xa[ga_c[p]] and
-//   Xb[gb_c[p]].
-// Both are one launch of the kernel below: a pair reads a_src[pos_a[p]]
-// and b_src[pos_b[p]], its dst is pool tile pair_d[p], and flags[p] bit 1
-// marks the first pair of a dst segment and bit 2 its last (the
-// schedule's flags; K9's first/last arrays are packed so on the host).
-// Every segment subtracts the sum of its pairs' op(a) . op(b)^T from its
-// dst tile; op rounds an fp32 tile to bf16 when the update dtype is bf16
-// and leaves it fp32 otherwise, after the scaled variant multiplies a's
+// Replaces the Pallas kernel gemm_scatter_fused of
+// pastix_tpu/numeric/pallas_kernels.py (_mk_kernel_src, the round-2 E2)
+// with its plain, scaled (d: LDL^T) and cross-pool (LU) variants: one
+// pair per TPU grid step over sort_triples output, a is pool tile ga[p],
+// b tile gb[p] of the pool itself or of the other pool of LU.  (K10,
+// gemm_scatter_blockspec, runs through K3's entry,
+// pipelined_gemm_scatter.cu.)
+// A pair reads a_src[pos_a[p]] and b_src[pos_b[p]], its dst is pool tile
+// pair_d[p], and flags[p] bit 1 marks the first pair of a dst segment and
+// bit 2 its last (K9's first/last arrays packed so on the host).  Every
+// segment subtracts the sum of its pairs' op(a) . op(b)^T from its dst
+// tile; op rounds an fp32 tile to bf16 when the update dtype is bf16 and
+// leaves it fp32 otherwise, after the scaled variant multiplies a's
 // column k by d[pair_k[p] * T + k]; products accumulate in fp32.  The
 // reference forms fp32 products from three bf16 passes (its TPU has no
 // fp32 matrix unit); here they are fp32 FMAs.
@@ -28,16 +24,14 @@
 // bound by their 67 TFLOP/s.
 //
 // First design: on the TPU the dst tile stays in VMEM from a segment's
-// first pair to its last (B6 walks the pairs one grid step at a time, B7's
-// BlockSpec pipeline skips the dst refetch while consecutive steps name
-// the same dst).  Here the grid is (pair, 64 x 64 block of the dst tile):
-// a CTA whose pair has no first flag exits at once; the others walk their
-// segment to its last flag with the dst block in registers (K3's per-pair
-// product, segment_gemm.cuh) and write it once.  A dst tile lies in one
-// segment (the host checks), so CTAs never share a dst and need no
-// atomics.  Segments run concurrently: K9's wrapper refuses pair lists
-// whose dst tiles meet their a tiles (or b tiles read from the same
-// pool); K10's operands are copies made before the launch.
+// first pair to its last (B6 walks the pairs one grid step at a time).
+// Here the grid is (pair, 64 x 64 block of the dst tile): a CTA whose
+// pair has no first flag exits at once; the others walk their segment to
+// its last flag with the dst block in registers (segment_gemm.cuh's
+// per-pair product) and write it once.  A dst tile lies in one segment
+// (the host checks), so CTAs never share a dst and need no atomics.
+// Segments run concurrently: the wrapper refuses pair lists whose dst
+// tiles meet their a tiles (or b tiles read from the same pool).
 
 #include "segment_gemm.cuh"
 
@@ -114,7 +108,7 @@ cudaError_t dispatch_t(int T, float* pool, const float* A, const float* B,
 }  // namespace
 
 // a_src, b_src: fp32 (n, T, T) arrays the pairs' a and b tiles are read
-// from (K9: the pools; K10: the gathered Xa, Xb).
+// from (the pools).
 // bf16 = 1: operands rounded to bf16 on load; 0: fp32 operands.
 // d != NULL: a's columns scaled by d[pair_k * T + k].
 extern "C" int pastix_segment_gemm_scatter(

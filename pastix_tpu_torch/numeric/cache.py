@@ -14,14 +14,18 @@ update: kernels K11 and K12.
   K12, variants ``loop`` and ``dot2``).
 
 K11 is a launch of K3's kernel (``csrc/pipelined_gemm_scatter.cu``) on
-the chunk's cache, K12 one of ``csrc/cache_gemm_scatter.cu``.  The host
+the chunk's cache, K12 one of ``csrc/cache_gemm_scatter.cu``: both run
+the tensor-core body ``csrc/seg_mma.cuh`` over pieces of the dst
+segments, K12 in its step mode, over the real pairs only (a null pair's
+product is exactly zero), its pieces cut at step boundaries.  The host
 tables are the reference's, copied verbatim (``exp_cache.py:67-74``,
 ``exp_mp.py:82-159``; those scripts run a 64³ analysis at import, so the
 copies live here).  Per chunk the wrapper fills one bf16 buffer, allocated
 once per call at the largest cache size: ``buf[:cu.size] = xab[cu]``, the
-rest zero, as the reference gathers ``Xc`` in XLA outside its kernel; then
-one launch.  A pool on a CUDA device goes through the kernel, a pool on
-the CPU through the plain twin.
+rest zero (K12 leaves the rest: its kernel reads no zero slot), as the
+reference gathers ``Xc`` in XLA outside its kernel; then one launch.  A
+pool on a CUDA device goes through the kernel, a pool on the CPU through
+the plain twin.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 from pastix_tpu_torch import _build
 from pastix_tpu_torch.numeric.fused import _segments
 from pastix_tpu_torch.numeric.kernels import check_pool
-from pastix_tpu_torch.numeric.leftlook import piece_ctas
+from pastix_tpu_torch.numeric.leftlook import piece_buffers, piece_ctas
 from pastix_tpu_torch.numeric.pipelined import (
     _F_FIRST, _F_LAST, _F_PAR, _F_VALID, _F_WRWAIT, _REF_BATCH,
     launch_chunks, pairs_ref, piece_fields,
@@ -146,8 +150,9 @@ def build_mp_schedule(ga, gb, gd, chunk, G, ext_tiles):
 class CacheChunk:
     """One chunk as K11 or K12 reads it, int64 tensors on the pool's
     device.  K11: the valid pairs, sorted by dst, ``seg_ptr`` in pairs.
-    K12: every step's G pairs, null pairs included (slot ``len(cu)``, the
-    zero slot), ``seg_ptr`` in steps."""
+    K12's twin: every step's G pairs, null pairs included (slot
+    ``len(cu)``, the zero slot), ``seg_ptr`` in steps; its kernel: the
+    ``real_*`` tables, the real pairs in step order."""
 
     cu: torch.Tensor  # [nu] stream positions of the chunk's distinct tiles
     seg_ptr: torch.Tensor  # [nseg + 1] pair (K11) or step (K12) offsets
@@ -155,12 +160,19 @@ class CacheChunk:
     pos_a: torch.Tensor  # cache slot of each pair's a
     pos_b: torch.Tensor  # cache slot of each pair's b
     n_pairs: int  # real pairs
-    # K11's pieces, as in pipelined.PipeChunk (K12 has none)
+    # the pieces, as in pipelined.PipeChunk; K12's over its real pairs,
+    # cut at step boundaries
     piece_ptr: torch.Tensor = None
     piece_seg: torch.Tensor = None
     seg_piece_ptr: torch.Tensor = None
     piece_slot: torch.Tensor = None
     nslot: int = 0
+    # K12's kernel: the real pairs' slots, 1 at each step's last real
+    # pair, and the segments' offsets among the real pairs
+    real_a: torch.Tensor = None
+    real_b: torch.Tensor = None
+    real_last: torch.Tensor = None
+    real_seg_ptr: torch.Tensor = None
 
     @property
     def nseg(self) -> int:
@@ -219,7 +231,12 @@ def vcache_plan(schedule, device) -> CachePlan:
 def mp_plan(schedule, device) -> CachePlan:
     """K12's tables of a :func:`build_mp_schedule` result, uploaded to
     ``device`` once: each chunk's steps cut into dst segments by the
-    schedule's per-step flags, and its padded pair tables as they are."""
+    schedule's per-step flags, its padded pair tables as they are (the
+    twin's), and the kernel's: the real pairs in step order, each step's
+    last marked, the segments cut into pieces at step boundaries for
+    ``device``'s card (``pipelined.piece_fields``)."""
+    ctas = piece_ctas(device)
+    tens = lambda a: _tens(a, device)
     chunks, group = [], None
     for t in schedule:
         G = int(t["G"])
@@ -229,12 +246,20 @@ def mp_plan(schedule, device) -> CachePlan:
         gd = np.asarray(t["gd"])
         flags = np.asarray(t["flags"])
         starts = _segments(gd, flags & _F_FIRST, flags & _F_LAST)
+        ga_v, gb_v = np.asarray(t["ga_v"]), np.asarray(t["gb_v"])
+        real = ga_v < t["cu"].size  # null pairs read the zero slot
+        # real pairs a step (every step has one: padding stays under G)
+        step_ptr = np.r_[0, np.cumsum(real.reshape(-1, G).sum(1))]
+        n = int(step_ptr[-1])
+        last = np.zeros(n, np.int64)
+        last[step_ptr[1:] - 1] = 1
+        real_seg_ptr = step_ptr[np.r_[starts, gd.size]]
         chunks.append(CacheChunk(
-            cu=_tens(t["cu"], device), seg_ptr=_tens(np.r_[starts, gd.size],
-                                                     device),
-            seg_dst=_tens(gd[starts], device), pos_a=_tens(t["ga_v"], device),
-            pos_b=_tens(t["gb_v"], device),
-            n_pairs=int((np.asarray(t["ga_v"]) < t["cu"].size).sum())))
+            cu=tens(t["cu"]), seg_ptr=tens(np.r_[starts, gd.size]),
+            seg_dst=tens(gd[starts]), pos_a=tens(ga_v), pos_b=tens(gb_v),
+            n_pairs=n, real_a=tens(ga_v[real]), real_b=tens(gb_v[real]),
+            real_last=tens(last), real_seg_ptr=tens(real_seg_ptr),
+            **piece_fields(real_seg_ptr, n, ctas, tens, step_ptr[:-1])))
     ct = max((t["CT"] for t in schedule), default=1)
     return CachePlan(chunks, -(-ct // 8) * 8, mp=True, group=group or 1)
 
@@ -333,19 +358,25 @@ def gemm_scatter_mp(pool: torch.Tensor, xab: torch.Tensor, plan: CachePlan,
     from the dst segment's accumulator, which holds the dst tile from the
     segment's first step to its last.
 
-    A pool on a CUDA device goes through K12, one launch per chunk; a pool
-    on the CPU through :func:`gemm_scatter_mp_ref`."""
+    A pool on a CUDA device goes through K12, one launch per chunk over
+    the chunk's real pairs and pieces (``csrc/cache_gemm_scatter.cu``, the
+    step mode of ``csrc/seg_mma.cuh``); a pool on the CPU through
+    :func:`gemm_scatter_mp_ref`."""
     T = _check(pool, xab, plan, variant)
     if pool.device.type == "cpu":
         return gemm_scatter_mp_ref(pool, xab, plan, variant)
     lib, stream, buf = _cuda_setup(pool, xab, plan, T)
+    scratch, count = piece_buffers(plan.chunks, T, pool.device)
     for c in plan.chunks:
-        _fill(buf, xab, c)
+        # the chunk's tiles only: no pair of the kernel reads the zero slot
+        torch.index_select(xab, 0, c.cu, out=buf[:c.cu.numel()])
         err = lib.pastix_mp_gemm_scatter(
-            pool.data_ptr(), buf.data_ptr(), c.seg_ptr.data_ptr(),
-            c.seg_dst.data_ptr(), c.pos_a.data_ptr(), c.pos_b.data_ptr(),
-            c.nseg, plan.group, c.cu.numel(), T, int(variant == "dot2"),
-            stream)
+            pool.data_ptr(), buf.data_ptr(), c.real_seg_ptr.data_ptr(),
+            c.seg_dst.data_ptr(), c.real_a.data_ptr(), c.real_b.data_ptr(),
+            c.real_last.data_ptr(), c.piece_ptr.data_ptr(),
+            c.piece_seg.data_ptr(), c.seg_piece_ptr.data_ptr(),
+            c.piece_slot.data_ptr(), scratch.data_ptr(), count.data_ptr(),
+            c.nseg, c.npiece, T, int(variant == "dot2"), stream)
         _build.check(err, f"gemm_scatter_mp[{variant}]")
         gemm_scatter_mp.launches += 1
     return pool

@@ -9,8 +9,11 @@ kernels K9 and K10.
   compact arrays first: :func:`gemm_scatter_blockspec` (K10) over a
   :func:`blockspec_plan`.
 
-K9 and K10 are launches of one CUDA kernel
-(``csrc/segment_gemm_scatter.cu``) that differ in where a and b are read.
+K9 is ``csrc/segment_gemm_scatter.cu``.  K10 runs through K3's entry
+(``csrc/pipelined_gemm_scatter.cu``, ``pipelined.launch_chunks``) on
+the chunk's compact gathers: bf16 updates on K3's tensor-core body over
+the pieces :func:`blockspec_plan` cuts (``pipelined.piece_fields``),
+fp32 updates on K3's fp32 body, a CTA per segment.
 
 The reference runs them only in its E2 A/B harness (``exp_pipe.py``) and
 its tests; ``chip_smoke.py`` phase 13 is the port's harness.  The plans
@@ -30,8 +33,9 @@ import torch
 
 from pastix_tpu_torch import _build
 from pastix_tpu_torch.numeric.kernels import check_pool, check_variant, is_bf16
+from pastix_tpu_torch.numeric.leftlook import piece_ctas
 from pastix_tpu_torch.numeric.pipelined import (
-    _F_FIRST, _F_LAST, PipeChunk, pairs_ref,
+    _F_FIRST, _F_LAST, PipeChunk, launch_chunks, pairs_ref, piece_fields,
 )
 
 # tile sizes K9 and K10 are built for
@@ -59,9 +63,9 @@ def sort_triples(ga, gb, gd, gk=None):
 class SegChunk(PipeChunk):
     """A pair list sorted by dst as K9 and K10 read it: K3's tables
     (:class:`~pastix_tpu_torch.numeric.pipelined.PipeChunk`) plus each
-    pair's dst tile and its segment flags, int32, bit 1 at the first pair
-    of a segment and bit 2 at its last (the schedule's ``flags``; K9
-    packs :func:`sort_triples`' first/last so)."""
+    pair's dst tile and, for K9, its segment flags, int32, bit 1 at the
+    first pair of a segment and bit 2 at its last (:func:`sort_triples`'
+    first/last packed so)."""
 
     pair_d: torch.Tensor = None
     flags: torch.Tensor = None
@@ -88,9 +92,12 @@ def _segments(gd, first, last):
     return starts
 
 
+def _tens(a, device):
+    return torch.as_tensor(np.ascontiguousarray(a, np.int64), device=device)
+
+
 def _chunk(ga, gb, gd, gk, starts, device, **extra) -> SegChunk:
-    tens = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int64),
-                                     device=device)
+    tens = lambda a: _tens(a, device)
     return SegChunk(
         n_pairs=int(gd.size), seg_ptr=tens(np.r_[starts, gd.size]),
         seg_dst=tens(gd[starts]), pair_a=tens(ga), pair_b=tens(gb),
@@ -123,12 +130,16 @@ def _check_disjoint(plan, src_pool) -> None:
                 "segments of K9/K10 run concurrently and would race")
 
 
-def _launch(pool, a_src, b_src, pos_a, pos_b, c, d, bf16, name) -> None:
-    """One launch of the K9/K10 kernel on a chunk: pair p reads
-    ``a_src[pos_a[p]]`` and ``b_src[pos_b[p]]``."""
+def _check_t(pool) -> None:
     if pool.shape[1] not in _KERNEL_T:
         raise ValueError(f"K9/K10 are built for T in {_KERNEL_T}, got "
                          f"T={pool.shape[1]}")
+
+
+def _launch(pool, a_src, b_src, pos_a, pos_b, c, d, bf16, name) -> None:
+    """One launch of the K9 kernel on a chunk: pair p reads
+    ``a_src[pos_a[p]]`` and ``b_src[pos_b[p]]``."""
+    _check_t(pool)
     err = _build.get_lib().pastix_segment_gemm_scatter(
         pool.data_ptr(), a_src.data_ptr(), b_src.data_ptr(),
         pos_a.data_ptr(), pos_b.data_ptr(), c.pair_d.data_ptr(),
@@ -187,11 +198,14 @@ def gemm_scatter_fused_ref(pool: torch.Tensor, plan, update_dtype=None, *,
 
 def blockspec_plan(schedule, device) -> list:
     """K10's tables of a ``build_pipeline_schedule`` result (its compact
-    form), one :class:`SegChunk` per chunk, uploaded to ``device``.
+    form), one :class:`SegChunk` per chunk, uploaded to ``device``, with
+    K3's pieces cut for its card (``pipelined.piece_fields``).
 
     The reference's kernel reads no ``_F_VALID`` bit and its harness
     builds these tables with ``group=1``: a schedule of another group
     raises, as does one built with ``ext_tiles``."""
+    ctas = piece_ctas(device)
+    tens = lambda a: _tens(a, device)
     out = []
     for t in schedule:
         if t["group"] != 1:
@@ -208,12 +222,10 @@ def blockspec_plan(schedule, device) -> list:
         starts = _segments(gd, flags & _F_FIRST, flags & _F_LAST)
         ua, ub = np.asarray(t["uniq_a"]), np.asarray(t["uniq_b"])
         ca, cb = np.asarray(t["ga_c"]), np.asarray(t["gb_c"])
-        tens = lambda a: torch.as_tensor(np.asarray(a, np.int64),
-                                         device=device)
         out.append(_chunk(
             ua[ca], ub[cb], gd, t.get("gk"), starts, device,
-            flags=torch.as_tensor(flags, device=device), uniq_a=tens(ua),
-            uniq_b=tens(ub), cpos_a=tens(ca), cpos_b=tens(cb)))
+            uniq_a=tens(ua), uniq_b=tens(ub), cpos_a=tens(ca), cpos_b=tens(cb),
+            **piece_fields(np.r_[starts, gd.size], gd.size, ctas, tens)))
     return out
 
 
@@ -222,12 +234,15 @@ def gemm_scatter_blockspec(pool: torch.Tensor, plan, update_dtype=None, *,
     """pool[gd] -= op(a diag(d[gk])) @ op(b)^T over a
     :func:`blockspec_plan`, in place, with :func:`gemm_scatter_fused`'s
     operands and rounding.  Per chunk the distinct a tiles of ``pool`` and
-    b tiles of ``src_pool`` (or ``pool``) are gathered into fp32 arrays
-    ``Xa``, ``Xb``, as the reference does outside its kernel, and each
-    pair reads its tiles there.
+    b tiles of ``src_pool`` (or ``pool``) are gathered into arrays ``Xa``,
+    ``Xb``, as the reference does outside its kernel, and each pair reads
+    its tiles there.
 
-    A pool on a CUDA device goes through K10, one launch per chunk, in
-    order on the current stream; a pool on the CPU through
+    A pool on a CUDA device goes through K10, one launch of K3's kernel
+    per chunk, in order on the current stream (``pipelined.launch_chunks``);
+    with bf16 updates the gathers are rounded to bf16 wherever that is
+    where the twin rounds (``Xb`` always, ``Xa`` unless ``d`` scales it
+    first).  A pool on the CPU goes through
     :func:`gemm_scatter_blockspec_ref`."""
     check_pool(pool)
     check_variant(pool, d, src_pool, plan)
@@ -237,11 +252,16 @@ def gemm_scatter_blockspec(pool: torch.Tensor, plan, update_dtype=None, *,
                                           src_pool=src_pool)
     if pool.device.type != "cuda":
         raise ValueError(f"unsupported device {pool.device}")
+    _check_t(pool)
     src = pool if src_pool is None else src_pool
-    for c in plan:
-        _launch(pool, pool[c.uniq_a], src[c.uniq_b], c.cpos_a, c.cpos_b, c,
-                d, bf16, "gemm_scatter_blockspec")
-        gemm_scatter_blockspec.launches += 1
+    cast = (lambda x: x.to(torch.bfloat16)) if bf16 else (lambda x: x)
+
+    def operands(c):
+        Xa = pool[c.uniq_a]
+        return (Xa if d is not None else cast(Xa), cast(src[c.uniq_b]),
+                c.cpos_a, c.cpos_b)
+
+    launch_chunks(pool, plan, operands, bf16, d, gemm_scatter_blockspec)
     return pool
 
 

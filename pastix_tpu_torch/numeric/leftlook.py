@@ -354,22 +354,29 @@ def piece_len(n_pairs, ctas) -> int:
     return max(_PIECE_MIN, -(-n_pairs // ctas)) if ctas else _PIECE_MIN
 
 
-def ll_pieces(seg_ptr, n_pairs, ctas):
+def ll_pieces(seg_ptr, n_pairs, ctas, cuts=None):
     """(piece_ptr, piece_seg, seg_piece_ptr, piece_slot, nslot) of one
     chunk: each dst segment cut into consecutive pieces of at most
     :func:`piece_len` pairs; the pieces of a segment cut in more than one
     are numbered 0.. in order (their partial sums' slots), the others get
-    -1."""
+    -1.  ``cuts`` (sorted pair offsets, every segment's start among them;
+    K12's step starts) are the only places a piece may start: a piece
+    then starts at the first cut at or past each multiple of the piece
+    length into its segment, and may run over it by less than a step."""
     L = piece_len(n_pairs, ctas)
-    seg_len = np.diff(seg_ptr)
-    npc = -(-seg_len // L)
-    piece_seg = np.repeat(np.arange(seg_len.size), npc)
-    first = np.repeat(np.cumsum(npc) - npc, npc)
-    starts = seg_ptr[piece_seg] + (np.arange(piece_seg.size) - first) * L
+    seg_ptr = np.asarray(seg_ptr, np.int64)
+    cuts = (np.arange(n_pairs, dtype=np.int64) if cuts is None
+            else np.asarray(cuts, np.int64))
+    seg = np.searchsorted(seg_ptr, cuts, side="right") - 1
+    k = (cuts - seg_ptr[seg]) // L
+    new = np.ones(cuts.size, bool)
+    new[1:] = (seg[1:] != seg[:-1]) | (k[1:] != k[:-1])
+    piece_seg = seg[new]
+    npc = np.bincount(piece_seg, minlength=seg_ptr.size - 1)
     cut = npc[piece_seg] > 1
     slot = np.full(piece_seg.size, -1, np.int64)
     slot[cut] = np.arange(int(cut.sum()))
-    return (np.r_[starts, n_pairs], piece_seg, np.r_[0, np.cumsum(npc)],
+    return (np.r_[cuts[new], n_pairs], piece_seg, np.r_[0, np.cumsum(npc)],
             slot, int(cut.sum()))
 
 

@@ -207,13 +207,14 @@ class PipeChunk:
             self.seg_dst, self.seg_ptr.diff()), self.pair_k)
 
 
-def piece_fields(seg_ptr, n_pairs, ctas, tens) -> dict:
-    """The piece fields of a chunk (:class:`PipeChunk`, and K11's
-    ``cache.CacheChunk``) with dst segments ``seg_ptr`` (host array): its
-    segments cut by ``leftlook.ll_pieces`` for ``ctas`` CTAs at once,
-    each table made a device tensor by ``tens``."""
+def piece_fields(seg_ptr, n_pairs, ctas, tens, cuts=None) -> dict:
+    """The piece fields of a chunk (:class:`PipeChunk`, and K11's and
+    K12's ``cache.CacheChunk``) with dst segments ``seg_ptr`` (host
+    array): its segments cut by ``leftlook.ll_pieces`` for ``ctas`` CTAs
+    at once (K12: at its step starts ``cuts`` only), each table made a
+    device tensor by ``tens``."""
     piece_ptr, piece_seg, seg_piece_ptr, slot, nslot = ll_pieces(
-        seg_ptr, n_pairs, ctas)
+        seg_ptr, n_pairs, ctas, cuts)
     return {"piece_ptr": tens(piece_ptr), "piece_seg": tens(piece_seg),
             "seg_piece_ptr": tens(seg_piece_ptr), "piece_slot": tens(slot),
             "nslot": nslot}
@@ -348,13 +349,15 @@ def gemm_scatter_pipelined(pool: torch.Tensor, plan, update_dtype=None, *,
 
 
 def launch_chunks(pool, chunks, operands, bf16, d, wrapper) -> None:
-    """K3's launches over ``chunks`` (:class:`PipeChunk`, or K11's
-    ``cache.CacheChunk``), one a chunk, in order on the current stream,
-    each counted in ``wrapper.launches``.  ``operands(c)`` gives chunk
-    c's (Xa, Xb, pos_a, pos_b).  With bf16 updates a CTA takes a piece
-    and the whole dst tile, or a 128 x 64 half at T = 128 when both
-    operands are fp32 (a stage of whole fp32 tiles would leave one CTA an
-    SM) or the chunk has fewer pieces than the card has SMs."""
+    """K3's launches over ``chunks`` (:class:`PipeChunk`, K10's
+    ``fused.SegChunk`` or K11's ``cache.CacheChunk``), one a chunk, in
+    order on the current stream, each counted in ``wrapper.launches``.
+    ``operands(c)`` gives chunk c's (Xa, Xb, pos_a, pos_b): both of one
+    dtype, or (K10's scaled bf16 updates) Xa fp32 and Xb bf16.  With
+    bf16 updates a CTA takes a piece and the whole dst tile, or a
+    128 x 64 half at T = 128 when both operands are fp32 (a stage of
+    whole fp32 tiles would leave one CTA an SM) or the chunk has fewer
+    pieces than the card has SMs."""
     lib = _build.get_lib()
     stream = _build.stream_ptr(pool.device)
     T = pool.shape[1]
@@ -363,12 +366,14 @@ def launch_chunks(pool, chunks, operands, bf16, d, wrapper) -> None:
         scratch, count = piece_buffers(chunks, T, pool.device)
     for c in chunks:
         Xa, Xb, pos_a, pos_b = operands(c)
-        if Xa.dtype != Xb.dtype:
-            raise ValueError("the a and b operand arrays differ in dtype")
+        if Xa.dtype != Xb.dtype and not (
+                bf16 and d is not None and Xa.dtype == torch.float32):
+            raise ValueError("the a and b operand arrays differ in dtype "
+                             "(only a scaled fp32 a with a bf16 b may)")
         if Xa.data_ptr() % 16 or Xb.data_ptr() % 16:
             raise ValueError("the operand arrays must start on 16 bytes "
                              "(the kernel copies 16 bytes at a time)")
-        f32 = Xa.dtype == torch.float32
+        f32 = Xa.dtype == Xb.dtype == torch.float32
         half = bf16 and T == 128 and (f32 or c.npiece < sms)
         err = lib.pastix_pipelined_gemm_scatter(
             pool.data_ptr(), Xa.data_ptr(), Xb.data_ptr(),
@@ -379,8 +384,8 @@ def launch_chunks(pool, chunks, operands, bf16, d, wrapper) -> None:
             c.seg_piece_ptr.data_ptr(), c.piece_slot.data_ptr(),
             scratch.data_ptr() if bf16 else None,
             count.data_ptr() if bf16 else None,
-            c.nseg, c.npiece, T, int(bf16), int(not f32),
-            T // 2 if half else T, stream,
+            c.nseg, c.npiece, T, int(bf16), int(Xa.dtype == torch.bfloat16),
+            int(Xb.dtype == torch.bfloat16), T // 2 if half else T, stream,
         )
         _build.check(err, wrapper.__name__)
         wrapper.launches += 1

@@ -272,6 +272,61 @@ def test_mp_twin_matches_xla(triples, xla, variant, G, chunk):
     _close(CA.gemm_scatter_mp_ref(P, xab, plan, variant).numpy(), xla)
 
 
+@pytest.mark.parametrize("G,chunk", [(3, 4096), (8, 24)])
+def test_mp_pieces_cut_at_step_boundaries(triples, G, chunk):
+    """K12's kernel tables (the triples plus one segment of 30 pairs):
+    the real pairs are the padded tables' without their null pairs, in
+    order, each step's last marked; the pieces (cut at 8 pairs where no
+    card is counted) start at step starts only and cover each segment's
+    steps once, in order; and the update summed as the kernel sums it
+    (each step's products, the steps into their piece, a cut segment's
+    pieces added in piece order, then subtracted once) equals the twin's
+    (1e-5 of max|ref|)."""
+    ga, gb, gd, ext, pool = triples
+    ga, gb = np.r_[ga, ga[:30]], np.r_[gb, gb[:30]]
+    gd = np.r_[np.where(gd == 63, 62, gd), np.full(30, 63)].astype(np.int32)
+    plan = CA.mp_plan(CA.build_mp_schedule(ga, gb, gd, chunk, G, ext), "cpu")
+    assert (len(plan.chunks) > 1) == (chunk == 24)
+    P = torch.from_numpy(pool.copy())
+    xab = P[torch.from_numpy(ext)].to(torch.bfloat16)
+    buf = torch.empty((plan.ct, T, T), dtype=torch.bfloat16)
+    got, cuts = P.clone(), 0
+    for c in plan.chunks:
+        pa, ra, rb, last, rsp, pp, ps, spp, slot = (x.numpy() for x in (
+            c.pos_a, c.real_a, c.real_b, c.real_last, c.real_seg_ptr,
+            c.piece_ptr, c.piece_seg, c.seg_piece_ptr, c.piece_slot))
+        real = pa < c.cu.numel()
+        np.testing.assert_array_equal(ra, pa[real])
+        np.testing.assert_array_equal(rb, c.pos_b.numpy()[real])
+        steps = np.r_[0, np.cumsum(real.reshape(-1, G).sum(1))]
+        assert (np.diff(steps) > 0).all() and steps[-1] == c.n_pairs
+        np.testing.assert_array_equal(np.flatnonzero(last), steps[1:] - 1)
+        np.testing.assert_array_equal(rsp, steps[c.seg_ptr.numpy()])
+        assert pp[0] == 0 and pp[-1] == c.n_pairs and (np.diff(pp) > 0).all()
+        assert np.isin(pp, steps).all()
+        np.testing.assert_array_equal(pp[spp], rsp)
+        np.testing.assert_array_equal(
+            np.repeat(np.arange(c.nseg), np.diff(spp)), ps)
+        cut = np.diff(spp)[ps] > 1
+        np.testing.assert_array_equal(slot[cut], np.arange(c.nslot))
+        assert (slot[~cut] == -1).all()
+        cuts += c.nslot
+        CA._fill(buf, xab, c)
+        for g in range(c.nseg):
+            total = torch.zeros(T, T)
+            for p in range(spp[g], spp[g + 1]):
+                part, step = torch.zeros(T, T), torch.zeros(T, T)
+                for i in range(pp[p], pp[p + 1]):
+                    step += (buf[ra[i]].float() @ buf[rb[i]].float().T)
+                    if last[i]:
+                        part, step = part + step, torch.zeros(T, T)
+                assert not step.any()  # a piece ends at a step's end
+                total += part
+            got[c.seg_dst[g]] -= total
+    assert cuts > 0
+    _close(got.numpy(), CA.gemm_scatter_mp_ref(P.clone(), xab, plan).numpy())
+
+
 def test_plans_refuse_what_they_do_not_take(triples):
     ga, gb, gd, ext, pool = triples
     with pytest.raises(ValueError, match="ext_tiles"):

@@ -116,6 +116,35 @@ def test_blockspec_matches_reference(data, variant, upd):
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
 
 
+@pytest.mark.parametrize("chunk", [8192, 17])
+def test_blockspec_plan_pieces_cover_each_segment(data, chunk):
+    """K10's plan carries K3's pieces (cut at 8 pairs where no card is
+    counted): consecutive runs of each segment's pairs, in order, slots
+    0.. for the pieces of a cut segment and -1 for the others; the
+    triples plus one segment of 20 pairs, in one chunk and in chunks of
+    17."""
+    _, _, _, ga, gb, gd, _ = data
+    ga, gb = np.r_[ga, ga[:20]], np.r_[gb, gb[:20]]
+    gd = np.r_[np.where(gd == NPOOL - 1, NPOOL - 2, gd),
+               np.full(20, NPOOL - 1)].astype(np.int32)
+    plan = FU.blockspec_plan(build_pipeline_schedule(ga, gb, gd, chunk=chunk),
+                             "cpu")
+    assert sum(c.n_pairs for c in plan) == gd.size
+    assert sum(c.nslot for c in plan) > 0
+    for c in plan:
+        sp, pp, ps, spp, slot = (x.numpy() for x in (
+            c.seg_ptr, c.piece_ptr, c.piece_seg, c.seg_piece_ptr,
+            c.piece_slot))
+        assert pp[0] == 0 and pp[-1] == c.n_pairs
+        assert (np.diff(pp) > 0).all() and (np.diff(pp) <= 8).all()
+        np.testing.assert_array_equal(pp[spp], sp)
+        np.testing.assert_array_equal(
+            np.repeat(np.arange(c.nseg), np.diff(spp)), ps)
+        cut = np.diff(spp)[ps] > 1
+        np.testing.assert_array_equal(slot[cut], np.arange(c.nslot))
+        assert (slot[~cut] == -1).all()
+
+
 @pytest.mark.parametrize("side", ["a", "b"])
 def test_fused_refuses_dst_meeting_operands(data, side):
     pool, pool_u, _, ga, gb, gd, _ = data

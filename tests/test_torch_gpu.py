@@ -798,7 +798,7 @@ def test_k9_matches_twin(cuda, T, upd, kind):
                          ids=["plain", "d", "src_pool"])
 def test_k10_matches_twin(cuda, T, upd, kind):
     """K10 on the busiest right-looking level's group-1 schedule, in
-    chunks of 7 pairs."""
+    chunks of 7 pairs; two runs bit-identical."""
     s, lv = _rl_level(T, cuda, kind)
     gk, kw = _pairs_kw(kind, s.factors, lv)
     plan = FU.blockspec_plan(PL.build_pipeline_schedule(
@@ -807,6 +807,8 @@ def test_k10_matches_twin(cuda, T, upd, kind):
     before = FU.gemm_scatter_blockspec.launches
     got = FU.gemm_scatter_blockspec(pool.clone(), plan, upd, **kw)
     assert FU.gemm_scatter_blockspec.launches == before + len(plan)
+    assert torch.equal(got, FU.gemm_scatter_blockspec(pool.clone(), plan,
+                                                      upd, **kw))
     ref = FU.gemm_scatter_blockspec_ref(pool.clone(), plan, upd, **kw)
     _close_e2(got, ref, plan)
 
@@ -863,13 +865,48 @@ def test_k11_matches_twin(cuda, T, chunk):
 @pytest.mark.parametrize("variant", ["loop", "dot2"])
 @pytest.mark.parametrize("chunk", [7, 1536])
 def test_k12_matches_twin(cuda, T, G, variant, chunk):
-    """K12 on the level's mp schedule."""
+    """K12 on the level's mp schedule; two runs bit-identical."""
     pool, xab, lv, tp = _cache_level(T, cuda)
     plan = CA.mp_plan(CA.build_mp_schedule(
         lv.gemm_a, lv.gemm_b, lv.gemm_d, chunk, G, tp), cuda)
     before = CA.gemm_scatter_mp.launches
     got = CA.gemm_scatter_mp(pool.clone(), xab, plan, variant)
     assert CA.gemm_scatter_mp.launches == before + len(plan.chunks)
+    assert torch.equal(got, CA.gemm_scatter_mp(pool.clone(), xab, plan,
+                                               variant))
+    ref = CA.gemm_scatter_mp_ref(pool.clone(), xab, plan, variant)
+    _close_e2(got, ref, plan.chunks)
+
+
+@pytest.mark.parametrize("T", [32, 64, 128])
+@pytest.mark.parametrize("variant", ["loop", "dot2"])
+@pytest.mark.parametrize("case", ["nulls", "pieces"])
+def test_k12_planted_segments(cuda, T, variant, case):
+    """K12 on planted dst segments over a 48-tile panel stream: ``nulls``
+    at G = 8, segments of 17, 9, 3 and 8 pairs (last steps of 1, 1, 3
+    and 8 real pairs among 8); ``pieces`` at G = 4, one segment of 600
+    pairs beside 20 of 3 in one chunk of 1536, the long one cut into
+    pieces.  Against the twin, two runs bit-identical."""
+    lens, G = ([17, 9, 3, 8], 8) if case == "nulls" else ([600] + [3] * 20,
+                                                           4)
+    rng = np.random.default_rng(T + G)
+    nsrc = 48
+    pool = torch.as_tensor(rng.standard_normal(
+        (nsrc + len(lens), T, T)).astype(np.float32), device=cuda)
+    gd = np.repeat(nsrc + np.arange(len(lens)), lens)
+    ga, gb = (rng.integers(0, nsrc, gd.size) for _ in range(2))
+    tp = np.arange(nsrc)
+    xab = pool[:nsrc].to(torch.bfloat16)
+    plan = CA.mp_plan(CA.build_mp_schedule(ga, gb, gd, 1536, G, tp), cuda)
+    assert len(plan.chunks) == 1
+    c, = plan.chunks
+    if case == "nulls":
+        assert c.n_pairs < c.pos_a.numel()
+    else:
+        assert c.nslot > 1
+    got = CA.gemm_scatter_mp(pool.clone(), xab, plan, variant)
+    assert torch.equal(got, CA.gemm_scatter_mp(pool.clone(), xab, plan,
+                                               variant))
     ref = CA.gemm_scatter_mp_ref(pool.clone(), xab, plan, variant)
     _close_e2(got, ref, plan.chunks)
 
