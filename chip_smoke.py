@@ -10,18 +10,19 @@ prints the final ``ok`` line:
    limit (nvidia-smi);
 2. build: compiles the hand-written CUDA kernels K1-K13 from ``csrc/``
    (one nvcc per source, in parallel; ptxas registers, shared memory and
-   spills, and K1's, K3's, K5's, K10's and K12's HMMA counts from
-   ``cuobjdump -sass`` where the toolkit has it, K5's those of K3's
-   kernel with fp32 operands, K10's those with fp32 a and bf16 b: none
-   fails) and
+   spills, and K1's, K3's, K5's, K6's, K10's and K12's HMMA counts from
+   ``cuobjdump -sass`` where the toolkit has it, K5's (and K9's) those of
+   K3's kernel with fp32 operands, K6's those of K1's windowed kernel
+   with fp32 operands, K10's those with fp32 a and bf16 b: none fails,
+   and the first designs of K6 and K9 must be gone from the library) and
    the port's native host library (g++; prints whether it was built or
    the Python ordering runs);
 3. kernels: each kernel against its plain PyTorch twin on the same inputs,
    max|d| <= 1e-4 max|ref| for K1 and K3, 1e-5 for K2 (summation order
-   only) and K4 (plus equal clamp counts); K1, K2, K3, K4, K5, K10 and
-   K12 also run twice and must repeat bit for bit (K3, K4, K5 and K10
-   wherever they are checked, phases 7, 8, 11 and 13 too; K12 in phase
-   14), and K2 must launch once a
+   only) and K4 (plus equal clamp counts); K1, K2, K3, K4, K5, K6, K9,
+   K10 and K12 also run twice and must repeat bit for bit (K3, K4, K5,
+   K6, K9 and K10 wherever they are checked, phases 7, 8, 11 and 13 too;
+   K12 in phase 14), and K2 must launch once a
    sweep direction: on the
    poisson_3d(24) T=128 layout, K1 (left-looking E2) on the busiest
    level's chunks and the dense-tail pre-pass, bf16 and fp32 updates,
@@ -109,8 +110,10 @@ prints the final ``ok`` line:
    and a refined solve to <= 1e-10, the schedule's kernel (K3, K5 or K6)
    launched, K1 not, no twin; where the reference's cost gate keeps no
    block or slab pair of the matrix the gate is opened, and the log says
-   so; then that kernel against its twin at the path's busiest level,
-   timed and bound, and per matrix K2 against its twin;
+   so; on the LDLᵗ slab path one more factorize under ``torch.profiler``
+   (K4's and K6's device time and their shares of ``fact_ms``); then
+   that kernel against its twin (twice, bit for bit) at the path's
+   busiest level, timed and bound, and per matrix K2 against its twin;
 12. fused-diagonal LLᵗ path (the reference's ``PASTIX_FUSED_DIAG=1``):
    ``poisson_3d(--nx)``, dense tail on, bf16 updates, left-looking and
    right-looking stream, each as in 4 (factorize twice, the second
@@ -130,8 +133,8 @@ prints the final ``ok`` line:
    about 3 pairs) and on the busiest right-looking level of phase 12's
    stream solver (its factored pool), bf16 and fp32, every variant of
    phase 3's slice 4 (K3 G=1/2, ``ab_pack`` G=1/2/4, K9, K10) against its
-   twin (1e-4 max|ref|; K3 and K10 also twice, bit for bit), then kernel
-   and twin timed and bound; the launches are those of the timed runs,
+   twin (1e-4 max|ref|; each also twice, bit for bit), then kernel and
+   twin timed and bound; the launches are those of the timed runs,
    counted from 0;
 14. operand-cache harness (the reference's ``exp_cache.py`` and
    ``exp_mp.py``) on phase 13's poisson level with its bf16 panel stream:
@@ -826,8 +829,12 @@ def factor_kernels(solver, num, launches):
     share of ``num["fact_ms"]`` (the path's second, unprofiled call), the
     run's device time over every kernel, copy and fill, and its eight
     longest kernels by name, logged; the numbers go into ``num``.  K4's
-    profiled launches must be those of one factorization (half of
-    ``launches``, which counted two)."""
+    profiled launches must be those of one factorization (half of the
+    path's ``launches``, which counted two).  Where the path launched K6,
+    K6 is summed and checked so (its kernels by :data:`K6_NAMES`), its
+    numbers in ``num`` as ``k6_device_ms`` and ``k6_share``."""
+    import re
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -845,16 +852,26 @@ def factor_kernels(solver, num, launches):
     k4_ms, k4_n = sum(r[1] for r in k4), sum(r[2] for r in k4)
     log(f"  one factorize under the profiler: device {total:.3f} ms; K4 "
         f"{k4_ms:.3f} ms in {k4_n} launches (path's count "
-        f"{launches // 2} a factorization), "
+        f"{launches['K4'] // 2} a factorization), "
         f"{100 * k4_ms / num['fact_ms']:.1f} % of fact_ms "
         f"{num['fact_ms']:.1f}")
     for name, ms, n in rows[:8]:
         log(f"    {ms:9.3f} ms {n:5d}x {name[:100]}")
-    if not total or k4_n != launches // 2:
+    if not total or k4_n != launches["K4"] // 2:
         raise AssertionError("the profiler did not see one factorization's "
                              "K4 launches")
     num.update(k4_device_ms=k4_ms, k4_share=k4_ms / num["fact_ms"],
                fact_device_ms=total)
+    if launches["K6"]:
+        k6 = [r for r in rows if re.search(K6_NAMES, r[0])]
+        k6_ms, k6_n = sum(r[1] for r in k6), sum(r[2] for r in k6)
+        log(f"  K6: {k6_ms:.3f} ms in {k6_n} launches (path's count "
+            f"{launches['K6'] // 2} a factorization), "
+            f"{100 * k6_ms / num['fact_ms']:.1f} % of fact_ms")
+        if k6_n != launches["K6"] // 2:
+            raise AssertionError("the profiler did not see one "
+                                 "factorization's K6 launches")
+        num.update(k6_device_ms=k6_ms, k6_share=k6_ms / num["fact_ms"])
 
 
 def k1_gather_timed(lists, T):
@@ -943,7 +960,7 @@ def lu_path(nx, dev, errs):
                    LL.gemm_scatter_ll_ref, k1_lists(s, lv), s.layout.T,
                    k1_flops, upd)
     k2lu = k2_timed(s)
-    factor_kernels(s, num, launches["K4"])
+    factor_kernels(s, num, launches)
     k4lu = k4_timed(s, lu=True)
     errs["K4lu"] = max(errs["K4lu"], k4lu[4])
     num["tri_inv_ms"] = k4lu[5]
@@ -977,7 +994,7 @@ def ldlt_path(nx, dev, errs):
     k1d = e2_timed("K1 d LDLT path busiest level", LL.gemm_scatter_ll,
                    LL.gemm_scatter_ll_ref, k1_lists(s, lv), s.layout.T,
                    k1_flops, upd)
-    factor_kernels(s, num, launches["K4"])
+    factor_kernels(s, num, launches)
     k4ldlt = k4_timed(s, lu=False)
     errs["K4ldlt"] = max(errs["K4ldlt"], k4ldlt[4])
     num["tri_inv_ms"] = k4ldlt[5]
@@ -1104,16 +1121,18 @@ def check_variants(dev, errs, sch24):
 
 
 def pair_arrays(c, T):
-    """(a, b, dst, k, lo, hi) of every pair of one K3, K5 or K6 chunk as
-    numpy arrays: a's tile (K3: its position in the chunk's operand form,
-    see :func:`e2_work`), b's, the dst tile, the source column (or None)
-    and the rows [lo, hi) of a the pair reads.  K5 chunks are K3's."""
-    if hasattr(c, "pair_r0"):  # K6
-        a, b, dst, k, r0, ha = (x.cpu().numpy().astype(np.int64)
-                                for x in c.pairs())
-        return a, b, dst, k, r0, r0 + ha
-    a, b, dst, k = (None if x is None else x.cpu().numpy()
-                    for x in c.pairs())
+    """(a, b, dst, k, lo, hi) of every pair of one K3, K5, K6 or K9
+    chunk as numpy arrays: a's tile (K3: its position in the chunk's
+    operand form, see :func:`e2_work`), b's, the dst tile, the source
+    column (or None) and the rows [lo, hi) of a the pair reads (K6: its
+    window, the last two of its six ``pairs()``).  K5 and K9 chunks are
+    K3's."""
+    p = [None if x is None else x.cpu().numpy().astype(np.int64)
+         for x in c.pairs()]
+    if len(p) == 6:  # K6
+        a, b, dst, k, rl, h = p
+        return a, b, dst, k, rl, rl + h
+    a, b, dst, k = p
     return a, b, dst, k, np.zeros(a.size, np.int64), np.full(a.size, T)
 
 
@@ -1248,6 +1267,9 @@ RL_GATE_OPEN = {"block": ("PASTIX_BLOCK_GATE", "100"),
 # the kernel each right-looking schedule must launch
 RL_KERNEL = {"stream": "K3", "pair": "K3", "pair+compact": "K3",
              "block": "K5", "slab": "K6"}
+# K6's kernels in a profile: K1's windowed tensor-core body with fp32 a
+# and b (``seg_mma_kernel<T, BN, true, true, SCALED, true>``)
+K6_NAMES = r"seg_mma_kernel<\d+, \d+, true, true, (true|false), true>"
 
 
 def rl_busiest(fact_fn, mode):
@@ -1415,7 +1437,7 @@ def check_rightlook_kernels(dev, errs):
                     errs[key] = max(errs[key], check_e2(
                         label, run, ref, pools[dst], chunks, upd,
                         f"{kind.name} {dst} {str(upd)[6:]}",
-                        repeat=key == "K10", **kw))
+                        repeat=key in ("K9", "K10"), **kw))
             if kind == LU:
                 continue
             bp = BK.build_block_plan(ga, gb, gd, gk, lay.blk_row,
@@ -1442,8 +1464,7 @@ def check_rightlook_kernels(dev, errs):
                 for dst, _, _, chunks, kw in steps:
                     errs[key] = max(errs[key], check_e2(
                         key, run, ref, pools[dst], chunks, upd,
-                        f"{kind.name} {str(upd)[6:]}", repeat=key == "K5",
-                        **kw))
+                        f"{kind.name} {str(upd)[6:]}", repeat=True, **kw))
         del s, f, lv
 
 
@@ -1521,6 +1542,13 @@ def rightlook_path(label, A, kind, modes, dev, errs):
             raise AssertionError(f"{label} {mode}: residual {res:.3e}")
         launches = read_counts(f"{label} {mode}", need + (RL_KERNEL[mode],),
                                forbid=("K1",))
+        num = {"fact_ms": fact[1], "left_fact_ms": left_ms,
+               "solve_ms": s.report.solve_time * 1e3,
+               "iters": s.report.refine_iters,
+               "residual": s.report.residual, "plan_s": plan_s,
+               "tiles": lay.npool, "peak_gib": peak}
+        if kind.name == "LDLT" and mode == "slab":
+            factor_kernels(s, num, launches)
         lv = rl_busiest(fn, mode)
         kern = RL_KERNEL[mode]
         steps, pools, run, ref = rl_steps(
@@ -1529,13 +1557,8 @@ def rightlook_path(label, A, kind, modes, dev, errs):
         key = f"{kind.name} {mode}"
         errs.setdefault(key, 0.0)
         timed = rl_checked(kern, run, ref, steps, pools, torch.bfloat16,
-                           lay.T, errs, key, repeat=kern in ("K3", "K5"))
-        out[mode] = (launches, {
-            "fact_ms": fact[1], "left_fact_ms": left_ms,
-            "solve_ms": s.report.solve_time * 1e3,
-            "iters": s.report.refine_iters, "residual": s.report.residual,
-            "plan_s": plan_s, "tiles": lay.npool, "peak_gib": peak,
-        }, timed)
+                           lay.T, errs, key, repeat=True)
+        out[mode] = (launches, num, timed)
         del steps, pools
     k2key = "K2lu" if kind.name == "LU" else "K2"
     errs[k2key] = max(errs[k2key], check_k2(s, 1, seed=11))
@@ -1793,7 +1816,7 @@ def ab_harness(solver, dev, errs):
                     f, a, b, d, None, None, dev):
                 out[name, str(upd)[6:], label] = rl_checked(
                     f"{label} {name}", run, ref, steps, pools, upd, T, errs,
-                    key, repeat=key.startswith("K3") or key == "K10")
+                    key, repeat=True)
     del P
     return out
 
@@ -2093,21 +2116,31 @@ def main() -> int:
         if ("registers" in line or "spill" in line or "entry function"
                 in line or line.startswith("---")):
             log(f"  ptxas: {line.strip()}")
-    # K5 runs K3's kernel with fp32 operands: its instantiations with
-    # A_F32 and B_F32 set (mangled, or demangled); K10's scaled bf16
-    # updates those with A_F32 set and B_F32 not (after BN)
-    mixed = tuple(f"Li{bn}ELb1ELb0E" for bn in (32, 64, 128)) + tuple(
-        f"{bn}, true, false" for bn in (32, 64, 128))
+    # K5 and K9 run K3's kernel with fp32 operands (the pools): its
+    # instantiations with A_F32 and B_F32 set (mangled, or demangled);
+    # K10's scaled bf16 updates those with A_F32 set and B_F32 not (after
+    # BN); K6 K1's windowed ones with A_F32 and B_F32 set (after BN)
+    bns = (32, 64, 128)
+    mixed = tuple(f"Li{bn}ELb1ELb0E" for bn in bns) + tuple(
+        f"{bn}, true, false" for bn in bns)
+    both = tuple(f"Li{bn}ELb1ELb1E" for bn in bns) + tuple(
+        f"{bn}, true, true" for bn in bns)
     for kname, src, also in (
             ("K1", "ll_gemm_scatter", None),
             ("K3", "pipelined_gemm_scatter", None),
-            ("K5", "pipelined_gemm_scatter", ("Lb1ELb1E", "true, true")),
+            ("K5, K9", "pipelined_gemm_scatter", ("Lb1ELb1E", "true, true")),
+            ("K6", "ll_gemm_scatter", both),
             ("K10 d", "pipelined_gemm_scatter", mixed),
             ("K12", "cache_gemm_scatter", None)):
         counts = sass_count(_build, src, ("HMMA", "HGMMA"), also)
         log(f"{kname} SASS: {counts}")
         if isinstance(counts, dict) and not counts["HMMA"]:
             raise AssertionError(f"{kname}: no HMMA in its SASS")
+    # the first designs of K6 and K9 are gone from the library
+    for gone in ("slab_gemm_scatter", "segment_gemm_scatter"):
+        counts = sass_count(_build, gone, ("HMMA",))
+        if isinstance(counts, dict) and counts["functions"]:
+            raise AssertionError(f"the library still holds {gone}")
     t0 = time.perf_counter()
     native.get_lib()
     log(f"native host library: {native.status} "
@@ -2242,7 +2275,7 @@ def main() -> int:
     # K4 LU (lu_factor_ex without pivoting) and K13 (index_select of the
     # same copies)
     # seg: the row runs the tensor-core body seg_mma.cuh from another
-    # kernel's source (K5, K10's bf16 updates, K12)
+    # kernel's source (K5, K6, K9 and K10's bf16 updates, K12)
     def entry(name, src, replaces, launches, err, timed, lib=None,
               seg=False):
         ms, plain, bd = timed[:3]
@@ -2285,8 +2318,11 @@ def main() -> int:
     # the larger of phase 3's and the path level's
     # K5 runs K3's kernel (pipelined_gemm_scatter.cu) on its tensor-core
     # body seg_mma.cuh (bf16) with the pool as both operand arrays
+    # K6 runs K1's kernel (ll_gemm_scatter.cu) on the same body, a window
+    # height a pair
     k5_at = "pastix_tpu/numeric/block_kernels.py:689"
     k6_at = "pastix_tpu/numeric/slab_kernels.py:588"
+    k1 = "ll_gemm_scatter"
     for name, src, at, kind, mode, k3key in (
         (f"{k3}[xab]", k3, k3_at, "LLT", "stream", "K3xab"),
         (f"{k3}[xab,d]", k3, k3_at, "LDLT", "stream", "K3xab"),
@@ -2294,16 +2330,14 @@ def main() -> int:
         (f"{k3}[compact]", k3, k3_at, "LLT", "pair+compact", "K3compact"),
         ("block_gemm_scatter", k3, k5_at, "LLT", "block", "K5"),
         ("block_gemm_scatter[d]", k3, k5_at, "LDLT", "block", "K5"),
-        ("slab_gemm_scatter", "slab_gemm_scatter", k6_at, "LLT", "slab",
-         "K6"),
-        ("slab_gemm_scatter[d]", "slab_gemm_scatter", k6_at, "LDLT", "slab",
-         "K6"),
+        ("slab_gemm_scatter", k1, k6_at, "LLT", "slab", "K6"),
+        ("slab_gemm_scatter[d]", k1, k6_at, "LDLT", "slab", "K6"),
     ):
         launches_m, _, timed = rl[kind][mode]
         kernels.append(entry(name, f"{src}.cu", at,
                              launches_m[RL_KERNEL[mode]],
                              max(errs[k3key], errs[f"{kind} {mode}"]), timed,
-                             seg=mode == "block"))
+                             seg=mode in ("block", "slab")))
     # slice 4: K7 and K8 with launches from the fused left-looking path;
     # K9, K10 and ab_pack from the harness, each row the poisson level's
     # case in bf16, its launches too (the other cases in the log)
@@ -2314,8 +2348,8 @@ def main() -> int:
               fused["left"][0]["K7"], errs["K7"], k7),
         entry("chol_inv", "chol_inv.cu", f"{at}:902", fused["left"][0]["K8"],
               errs["K8"], k8),
-        entry("gemm_scatter_fused", "segment_gemm_scatter.cu", f"{at}:186",
-              ab_row("K9")[3], errs["K9"], ab_row("K9")),
+        entry("gemm_scatter_fused", f"{k3}.cu", f"{at}:186",
+              ab_row("K9")[3], errs["K9"], ab_row("K9"), seg=True),
         entry("gemm_scatter_blockspec", f"{k3}.cu", f"{at}:806",
               ab_row("K10")[3], errs["K10"], ab_row("K10"), seg=True),
         entry("gemm_scatter_blockspec[fp32]", f"{k3}.cu", f"{at}:806",

@@ -23,8 +23,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _OUT = os.path.join(_HERE, "_build")
 _SOURCES = ("ll_gemm_scatter.cu", "sweep.cu", "pipelined_gemm_scatter.cu",
-            "tile_factor.cu", "slab_gemm_scatter.cu", "chol_inv.cu",
-            "segment_gemm_scatter.cu", "cache_gemm_scatter.cu",
+            "tile_factor.cu", "chol_inv.cu", "cache_gemm_scatter.cu",
             "dma_probe.cu")
 _HEADERS = ("common.cuh", "segment_gemm.cuh", "mma_tile.cuh",
             "seg_mma.cuh")
@@ -110,21 +109,17 @@ def get_lib() -> ctypes.CDLL:
         _compile(so_path)
     lib = ctypes.CDLL(so_path)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.pastix_ll_gemm_scatter.argtypes = [P] * 16 + [L, L, I, I, I, I, P]
+    lib.pastix_ll_gemm_scatter.argtypes = [P] * 17 + [L, L, I, I, I, I, P]
     lib.pastix_ll_gemm_scatter.restype = I
     lib.pastix_sweep_run.argtypes = [P] * 10 + [L, L, I, I, I, I, I, P]
     lib.pastix_sweep_run.restype = I
     lib.pastix_pipelined_gemm_scatter.argtypes = [P] * 15 + [L, L, I, I, I,
                                                               I, I, P]
     lib.pastix_pipelined_gemm_scatter.restype = I
-    lib.pastix_slab_gemm_scatter.argtypes = [P] * 9 + [L, I, I, P]
-    lib.pastix_slab_gemm_scatter.restype = I
     lib.pastix_tile_factor.argtypes = [P] * 4 + [L, I, I, ctypes.c_float, P]
     lib.pastix_tile_factor.restype = I
     lib.pastix_chol_inv.argtypes = [P, P, L, P, P, L, I, P]
     lib.pastix_chol_inv.restype = I
-    lib.pastix_segment_gemm_scatter.argtypes = [P] * 9 + [L, I, I, P]
-    lib.pastix_segment_gemm_scatter.restype = I
     lib.pastix_mp_gemm_scatter.argtypes = [P] * 13 + [L, L, I, I, P]
     lib.pastix_mp_gemm_scatter.restype = I
     lib.pastix_dma_probe.argtypes = [P] * 3 + [I] * 5 + [L, I, I, P]

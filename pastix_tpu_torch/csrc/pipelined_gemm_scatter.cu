@@ -7,11 +7,12 @@
 // compact: per-chunk gathers of the distinct operand tiles; ab_pack:
 // stacked (a, b) pairs).  numeric/cache.py also launches it for K11
 // (exp_cache.py's gemm_scatter_vcache): a and b read by slot from one
-// bf16 array, the chunk's operand cache; numeric/fused.py for K10
-// (gemm_scatter_blockspec): a and b read from the chunk's compact
-// gathers, b in bf16, a in bf16 too unless it is scaled (then fp32: its
-// twin rounds round(a d)), with bf16 updates; both fp32 with fp32
-// updates; and numeric/block.py for K5.
+// bf16 array, the chunk's operand cache; numeric/fused.py for K9
+// (gemm_scatter_fused: a and b from the pools, one chunk of sort_triples
+// output) and K10 (gemm_scatter_blockspec): a and b read from the
+// chunk's compact gathers, b in bf16, a in bf16 too unless it is scaled
+// (then fp32: its twin rounds round(a d)), with bf16 updates; both fp32
+// with fp32 updates; and numeric/block.py for K5.
 // Semantics: for every dst segment of a chunk (pairs sorted by dst on the
 // host), subtract the sum of its pairs' op(a) . op(b)^T over the full
 // T x T dst tile, where op rounds an fp32 tile to bf16 when the update
@@ -55,9 +56,9 @@
 // fp32 updates (update_dtype None: the shift-invert LDL^T Schur residue)
 // keep the first design's FMA body unchanged: one CTA per (segment,
 // 64 x 64 block of the dst tile) holding its block in registers over the
-// segment (segment_gemm.cuh, shared with K9; K10's fp32 updates run
-// here).  The port's fp32 is
-// full fp32, with TF32 off, so it has no tensor-core route.
+// segment (segment_gemm.cuh; K5's, K9's and K10's fp32 updates run
+// here).  The port's fp32 is full fp32, with TF32 off, so it has no
+// tensor-core route.
 
 #include "seg_mma.cuh"
 #include "segment_gemm.cuh"
@@ -92,7 +93,7 @@ pipelined_fp32_kernel(float* __restrict__ pool, const OP* __restrict__ a_src,
 
   const int64_t p_end = seg_ptr[sg + 1];
   for (int64_t p = seg_ptr[sg]; p < p_end; ++p)
-    seg::pair_product<T, OP, false, SCALED>(
+    seg::pair_product<T, OP, SCALED>(
         acc, a_src + pair_a[p] * TT, b_src + pair_b[p] * TT,
         SCALED ? d + pair_k[p] * T : nullptr, r0, c0, As, Bs);
   seg::subtract_block<T>(pool + seg_dst[sg] * TT, acc, r0, c0);

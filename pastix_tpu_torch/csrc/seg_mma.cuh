@@ -1,7 +1,8 @@
 // The tensor-core body of the segment-walking E2 kernels with bf16
-// updates: K1 (ll_gemm_scatter.cu, left-looking, with row windows), K3
-// (pipelined_gemm_scatter.cu, right-looking, full tiles; K5, K10 and K11
-// launch it on their own operands) and K12 (cache_gemm_scatter.cu, in
+// updates: K1 (ll_gemm_scatter.cu, left-looking, with row windows; K6
+// launches it with a window height a pair), K3
+// (pipelined_gemm_scatter.cu, right-looking, full tiles; K5, K9, K10 and
+// K11 launch it on their own operands) and K12 (cache_gemm_scatter.cu, in
 // steps of pairs).  pool[dst] -= sum over a piece of a dst segment of
 // op(a diag(d)) . op(b)^T, products by mma.sync m16n8k16 (bf16 in, fp32
 // accumulators in registers; mma_tile.cuh).
@@ -26,9 +27,12 @@
 //   rounded to bf16 as the fragment is loaded); SCALED multiplies a's
 //   columns by d[pair_k * T + k] first (round(a d) from fp32,
 //   round(round(a) d) from bf16), exactly where the twins round.
-// - WINDOW (K1): rows of a outside [rl, rl + H) enter as zeros (the copy
-//   reads nothing for them), and a warp issues no mma for a 16-row group
-//   wholly outside the window.  Without it every pair is a full tile.
+// - WINDOW (K1, K6): rows of a outside [rl, rl + h) enter as zeros (the
+//   copy reads nothing for them), and a warp issues no mma for a 16-row
+//   group wholly outside the window; a group the window cuts runs whole,
+//   on the zeros.  h is the launch's H (K1: one height a chunk) or each
+//   pair's pair_h (K6: heights T/4..T in one chunk), staged beside rl.
+//   Without it every pair is a full tile.
 // - STEP (K12): the pairs come in steps, pair_last set at each step's
 //   last pair, and pieces end at step boundaries.  A step's products are
 //   summed in a step accumulator (STEP_DOT2: one chain over the step's
@@ -70,8 +74,9 @@ struct Chunk {
   int* count;
   int64_t nseg;
   int64_t npiece;
-  int H;  // row-window height (WINDOW)
+  int H;  // row-window height of every pair (WINDOW, pair_h null)
   const int64_t* pair_last;  // nonzero at each step's last pair (STEP)
+  const int64_t* pair_h;  // each pair's window height (WINDOW; null: H)
 };
 
 constexpr int BK = 32;  // k slice
@@ -122,8 +127,12 @@ __device__ __forceinline__ void seg_mma_body(const Chunk x) {
   const int64_t* __restrict__ pair_b = x.pair_b;
   const int64_t* __restrict__ pair_rl = x.pair_rl;
   const int64_t* __restrict__ pair_k = x.pair_k;
+  const int64_t* __restrict__ pair_h = x.pair_h;
   const float* __restrict__ d = x.d;
-  const int H = WINDOW ? x.H : T;
+  // a pair's window height: its own (pair_h, K6) or the launch's (K1)
+  auto height = [&](int64_t p) {
+    return pair_h != nullptr ? (int)__ldg(pair_h + p) : x.H;
+  };
   using C = Tc<T, BN, A_F32, B_F32, SCALED>;
   using TA = std::conditional_t<A_F32, float, __nv_bfloat16>;
   using TB = std::conditional_t<B_F32, float, __nv_bfloat16>;
@@ -131,6 +140,7 @@ __device__ __forceinline__ void seg_mma_body(const Chunk x) {
   constexpr int LD = mma_tile::LD;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int st_rl[C::STAGES];  // row window of each stage's pair
+  __shared__ int st_h[C::STAGES];
   __shared__ int st_end[C::STAGES];  // a stage that ends a step (STEP)
 
   const int tid = threadIdx.x;
@@ -148,15 +158,19 @@ __device__ __forceinline__ void seg_mma_body(const Chunk x) {
   int iks = 0;
   int64_t ca = __ldg(pair_a + p0), cb = __ldg(pair_b + p0);
   int crl = WINDOW ? (int)__ldg(pair_rl + p0) : 0;
+  int ch = WINDOW ? height(p0) : T;
   int64_t ck = SCALED ? __ldg(pair_k + p0) : 0;
   bool cl = STEP != ONE_SUM && __ldg(x.pair_last + p0) != 0;
   int64_t na = 0, nb = 0, nk = 0;
-  int nrl = 0;
+  int nrl = 0, nh = T;
   bool nl = false;
   if (p0 + 1 < p_end) {
     na = __ldg(pair_a + p0 + 1);
     nb = __ldg(pair_b + p0 + 1);
-    if (WINDOW) nrl = (int)__ldg(pair_rl + p0 + 1);
+    if (WINDOW) {
+      nrl = (int)__ldg(pair_rl + p0 + 1);
+      nh = height(p0 + 1);
+    }
     if (SCALED) nk = __ldg(pair_k + p0 + 1);
     if (STEP != ONE_SUM) nl = __ldg(x.pair_last + p0 + 1) != 0;
   }
@@ -168,7 +182,7 @@ __device__ __forceinline__ void seg_mma_body(const Chunk x) {
     for (int q = tid; q < T * C::CA; q += C::NT) {
       const int r = q / C::CA, k = q % C::CA * (16 / C::EA);
       mma_tile::cp_async16(base + (r * LD + k) * C::EA, a + (int64_t)r * T + k,
-                           !WINDOW || (r >= crl && r < crl + H));
+                           !WINDOW || (r >= crl && r < crl + ch));
     }
     const TB* b = (const TB*)x.b_src + cb * TT + (int64_t)n0 * T + k0;
     for (int q = tid; q < BN * C::CB; q += C::NT) {
@@ -181,7 +195,10 @@ __device__ __forceinline__ void seg_mma_body(const Chunk x) {
         mma_tile::cp_async16(base + C::SA + C::SB + tid * 16,
                              d + ck * T + k0 + tid * 4, true);
     }
-    if (WINDOW && tid == 0) st_rl[stage] = crl;
+    if (WINDOW && tid == 0) {
+      st_rl[stage] = crl;
+      st_h[stage] = ch;
+    }
     if (STEP != ONE_SUM && tid == 0) st_end[stage] = cl && iks == C::KS - 1;
     if (++iks == C::KS) {
       iks = 0;
@@ -189,12 +206,16 @@ __device__ __forceinline__ void seg_mma_body(const Chunk x) {
         ca = na;
         cb = nb;
         crl = nrl;
+        ch = nh;
         ck = nk;
         cl = nl;
         if (ip + 1 < p_end) {
           na = __ldg(pair_a + ip + 1);
           nb = __ldg(pair_b + ip + 1);
-          if (WINDOW) nrl = (int)__ldg(pair_rl + ip + 1);
+          if (WINDOW) {
+            nrl = (int)__ldg(pair_rl + ip + 1);
+            nh = height(ip + 1);
+          }
           if (SCALED) nk = __ldg(pair_k + ip + 1);
           if (STEP != ONE_SUM) nl = __ldg(x.pair_last + ip + 1) != 0;
         }
@@ -232,11 +253,11 @@ __device__ __forceinline__ void seg_mma_body(const Chunk x) {
     const unsigned char* base = smem + stage * C::STAGE;
     bool live[C::MI];
     if constexpr (WINDOW) {
-      const int rl = st_rl[stage];
+      const int rl = st_rl[stage], h = st_h[stage];
 #pragma unroll
       for (int mi = 0; mi < C::MI; ++mi) {
         const int g0 = wm * C::WM + 16 * mi;
-        live[mi] = g0 < rl + H && g0 + 16 > rl;
+        live[mi] = g0 < rl + h && g0 + 16 > rl;
       }
     } else {
 #pragma unroll

@@ -1,23 +1,21 @@
-// The per-pair product of the segment-walking E2 kernels on the CUDA
-// cores.  Its users: K9 (segment_gemm_scatter.cu, fp32 and bf16 updates)
-// and K3's fp32 updates (pipelined_gemm_scatter.cu), which K10's fp32
-// updates run through too.  Bf16 updates of K3, K5, K10, K11 and K12 run
-// on the tensor cores (seg_mma.cuh).
+// The per-pair product of K3's fp32 updates on the CUDA cores
+// (pipelined_gemm_scatter.cu), which K5's, K9's and K10's fp32 updates
+// run through too: its one user.  Bf16 updates of K1, K3, K5, K6, K9,
+// K10, K11 and K12 run on the tensor cores (seg_mma.cuh).
 //
 // A CTA of NT = (BM / 4)^2 threads owns one BM x BM block (rows r0.., cols
 // c0..) of a T x T dst tile and keeps it in registers, 4 x 4 a thread,
 // over every pair of its dst segment; each pair's a and b are staged
 // through shared memory in BK-deep k slices, all loads of a slice issued
 // before its first store.  Operands are tiles of OP (fp32, or bf16 already
-// rounded); an fp32 tile is rounded to bf16 on load when ROUND; a's column
-// k is scaled by dk[k] first when SCALED (common.cuh's load_scaled).
+// rounded), read as they are; a's column k is scaled by dk[k] when SCALED
+// (common.cuh's load_scaled).
 //
 // What bounds it: the products run on the fp32 CUDA cores (67 TFLOP/s at
 // best, 4 x 4 a thread), and each slice is loaded synchronously, two
-// barriers a slice with no load in flight during the products: K9 runs
-// about 9x above its byte bound on an H100 (PERF.md §6).  Moving K9's
-// bf16 updates onto seg_mma.cuh is queued work; the port's fp32 updates
-// stay full fp32 (TF32 off), so they have no tensor-core route here.
+// barriers a slice with no load in flight during the products.  The
+// port's fp32 updates stay full fp32 (TF32 off), so they have no
+// tensor-core route here.
 #pragma once
 
 #include "common.cuh"
@@ -34,7 +32,7 @@ struct Shape {
 };
 
 // acc += op(a[r0:r0+BM, :] diag(dk)) . op(b[c0:c0+BM, :])^T
-template <int T, typename OP, bool ROUND, bool SCALED>
+template <int T, typename OP, bool SCALED>
 __device__ __forceinline__ void pair_product(
     float (&acc)[4][4], const OP* a, const OP* b,
     const float* __restrict__ dk, int r0, int c0,
@@ -51,9 +49,9 @@ __device__ __forceinline__ void pair_product(
     for (int l = 0; l < LD; ++l) {
       const int e = tid + l * NT;
       const int kk = k0 + e % BK;
-      av_ld[l] = load_scaled<ROUND, SCALED>(
+      av_ld[l] = load_scaled<SCALED>(
           a + (int64_t)(r0 + e / BK) * T + kk, SCALED ? __ldg(dk + kk) : 1.f);
-      bv_ld[l] = load_op<ROUND>(b + (int64_t)(c0 + e / BK) * T + kk);
+      bv_ld[l] = load_op(b + (int64_t)(c0 + e / BK) * T + kk);
     }
 #pragma unroll
     for (int l = 0; l < LD; ++l) {

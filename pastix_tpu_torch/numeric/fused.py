@@ -9,11 +9,12 @@ kernels K9 and K10.
   compact arrays first: :func:`gemm_scatter_blockspec` (K10) over a
   :func:`blockspec_plan`.
 
-K9 is ``csrc/segment_gemm_scatter.cu``.  K10 runs through K3's entry
-(``csrc/pipelined_gemm_scatter.cu``, ``pipelined.launch_chunks``) on
-the chunk's compact gathers: bf16 updates on K3's tensor-core body over
-the pieces :func:`blockspec_plan` cuts (``pipelined.piece_fields``),
-fp32 updates on K3's fp32 body, a CTA per segment.
+Neither has a source of its own: both run through K3's entry
+(``csrc/pipelined_gemm_scatter.cu``, ``pipelined.launch_chunks``), K9 on
+the pools themselves, K10 on the chunk's compact gathers.  Bf16 updates
+run on K3's tensor-core body (``csrc/seg_mma.cuh``) over the pieces the
+plans cut (``pipelined.piece_fields``), the fp32 pools rounded as the
+fragments load; fp32 updates run on K3's fp32 body, a CTA per segment.
 
 The reference runs them only in its E2 A/B harness (``exp_pipe.py``) and
 its tests; ``chip_smoke.py`` phase 13 is the port's harness.  The plans
@@ -31,7 +32,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from pastix_tpu_torch import _build
 from pastix_tpu_torch.numeric.kernels import check_pool, check_variant, is_bf16
 from pastix_tpu_torch.numeric.leftlook import piece_ctas
 from pastix_tpu_torch.numeric.pipelined import (
@@ -62,13 +62,10 @@ def sort_triples(ga, gb, gd, gk=None):
 @dataclasses.dataclass
 class SegChunk(PipeChunk):
     """A pair list sorted by dst as K9 and K10 read it: K3's tables
-    (:class:`~pastix_tpu_torch.numeric.pipelined.PipeChunk`) plus each
-    pair's dst tile and, for K9, its segment flags, int32, bit 1 at the
-    first pair of a segment and bit 2 at its last (:func:`sort_triples`'
-    first/last packed so)."""
+    (:class:`~pastix_tpu_torch.numeric.pipelined.PipeChunk`, its pieces
+    included) plus each pair's dst tile."""
 
     pair_d: torch.Tensor = None
-    flags: torch.Tensor = None
     # K9: whether some dst tile is also an a tile, or a b tile, of the
     # list (K10 reads copies of its operands and needs no such check)
     a_meets_dst: bool = False
@@ -106,18 +103,22 @@ def _chunk(ga, gb, gd, gk, starts, device, **extra) -> SegChunk:
 
 def fused_plan(ga, gb, gd, first, last, gk=None, device="cpu") -> list:
     """K9's table of :func:`sort_triples` output (host arrays), uploaded
-    to ``device``: a list of one :class:`SegChunk` (none when empty)."""
+    to ``device``: a list of one :class:`SegChunk` (none when empty),
+    with K3's pieces cut for the card (``pipelined.piece_fields``).  The
+    flags are checked against the runs of equal dst, not uploaded: the
+    segments carry them."""
     ga, gb, gd, first, last = (np.asarray(x) for x in (ga, gb, gd, first,
                                                           last))
     if not gd.size:
         return []
     starts = _segments(gd, first, last)
-    flags = (np.where(first != 0, _F_FIRST, 0)
-             | np.where(last != 0, _F_LAST, 0)).astype(np.int32)
+    tens = lambda a: _tens(a, device)
     return [_chunk(ga, gb, gd, None if gk is None else np.asarray(gk),
-                   starts, device, flags=torch.as_tensor(flags, device=device),
+                   starts, device,
                    a_meets_dst=bool(np.intersect1d(gd, ga).size),
-                   b_meets_dst=bool(np.intersect1d(gd, gb).size))]
+                   b_meets_dst=bool(np.intersect1d(gd, gb).size),
+                   **piece_fields(np.r_[starts, gd.size], gd.size,
+                                  piece_ctas(device), tens))]
 
 
 def _check_disjoint(plan, src_pool) -> None:
@@ -136,19 +137,6 @@ def _check_t(pool) -> None:
                          f"T={pool.shape[1]}")
 
 
-def _launch(pool, a_src, b_src, pos_a, pos_b, c, d, bf16, name) -> None:
-    """One launch of the K9 kernel on a chunk: pair p reads
-    ``a_src[pos_a[p]]`` and ``b_src[pos_b[p]]``."""
-    _check_t(pool)
-    err = _build.get_lib().pastix_segment_gemm_scatter(
-        pool.data_ptr(), a_src.data_ptr(), b_src.data_ptr(),
-        pos_a.data_ptr(), pos_b.data_ptr(), c.pair_d.data_ptr(),
-        c.flags.data_ptr(), None if d is None else d.data_ptr(),
-        None if d is None else c.pair_k.data_ptr(), c.n_pairs,
-        pool.shape[1], int(bf16), _build.stream_ptr(pool.device))
-    _build.check(err, name)
-
-
 def gemm_scatter_fused(pool: torch.Tensor, plan, update_dtype=None, *,
                        d=None, src_pool=None):
     """pool[gd] -= op(a diag(d[gk])) @ op(b)^T over a :func:`fused_plan`,
@@ -158,8 +146,10 @@ def gemm_scatter_fused(pool: torch.Tensor, plan, update_dtype=None, *,
     ``d`` (nbc, T) scales a's columns (LDLᵗ; the plan needs ``gk``).
     Raises if a dst tile is an a tile, or a b tile read from ``pool``.
 
-    A pool on a CUDA device goes through K9, one launch per chunk; a pool
-    on the CPU through :func:`gemm_scatter_fused_ref`."""
+    A pool on a CUDA device goes through K9, one launch of K3's kernel
+    per chunk on the pools themselves (``pipelined.launch_chunks``: with
+    bf16 updates the tensor-core body, the fp32 tiles rounded as they
+    load); a pool on the CPU through :func:`gemm_scatter_fused_ref`."""
     check_pool(pool)
     check_variant(pool, d, src_pool, plan)
     _check_disjoint(plan, src_pool)
@@ -169,11 +159,10 @@ def gemm_scatter_fused(pool: torch.Tensor, plan, update_dtype=None, *,
                                       src_pool=src_pool)
     if pool.device.type != "cuda":
         raise ValueError(f"unsupported device {pool.device}")
+    _check_t(pool)
     src = pool if src_pool is None else src_pool
-    for c in plan:
-        _launch(pool, pool, src, c.pair_a, c.pair_b, c, d, bf16,
-                "gemm_scatter_fused")
-        gemm_scatter_fused.launches += 1
+    launch_chunks(pool, plan, lambda c: (pool, src, c.pair_a, c.pair_b),
+                  bf16, d, gemm_scatter_fused)
     return pool
 
 

@@ -13,6 +13,8 @@ once, at analysis time.
 ones on the CUDA cores) for a pool on a CUDA device and its plain twin
 ``gemm_scatter_ll_ref`` for a pool on the CPU, in the plain, the scaled
 (``d``, LDLᵗ) and the cross-pool (``src_pool``, LU) variants.
+``launch_ll`` makes K1's launches, for ``gemm_scatter_ll`` and for K6
+(``slab.gemm_scatter_slab``, a window height a pair).
 """
 
 from __future__ import annotations
@@ -464,50 +466,74 @@ def gemm_scatter_ll(pool: torch.Tensor, plan, update_dtype=torch.bfloat16, *,
                                    src_pool=src_pool)
     if pool.device.type != "cuda":
         raise ValueError(f"unsupported device {pool.device}")
-    lib = _build.get_lib()
-    stream = _build.stream_ptr(pool.device)
     T = pool.shape[1]
     src = pool if src_pool is None else src_pool
     a_cached = src_pool is None and d is None
-    cache = None
     if bf16:
         # per-chunk operand cache, cast once: the reference's Xc
         nu_max = max((c.cu.numel() for c in plan), default=0)
         cache = torch.empty((nu_max, T, T), dtype=torch.bfloat16,
                             device=pool.device)
+
+    def operands(c):
+        if not bf16:
+            return 0, pool, src, c.pair_a, c.pair_b
+        # operand tiles are panels of earlier columns, which no chunk of
+        # this list writes: gathering before the launch is exact
+        cache[: c.cu.numel()].copy_(src.index_select(0, c.cu))
+        if c.mode == "full" and a_cached:
+            return 2, cache, cache, c.a_slot, c.b_slot
+        return 1, pool, cache, c.pair_a, c.b_slot
+
+    gemm_scatter_ll.half_launches += launch_ll(pool, plan, operands, bf16,
+                                               d, gemm_scatter_ll)
+    return pool
+
+
+def launch_ll(pool, chunks, operands, bf16, d, wrapper) -> int:
+    """K1's launches over ``chunks`` (:class:`LLChunk`, or K6's
+    ``slab.SlabChunk``), one a chunk, in order on the current stream, each
+    counted in ``wrapper.launches``; returns how many ran on 128 x 64
+    halves.  ``operands(c)`` gives chunk c's (variant, Xa, Xb, pos_a,
+    pos_b), gathering them first where the variant reads a cache: variant
+    0 fp32 updates (a from the pool, b from the pool or the LU source
+    pool); with bf16 updates 1 (a fp32 from the pool, b bf16 from the
+    cache), 2 (both from the cache) or 3 (both fp32 from the pool).  The
+    window: one height a launch, ``c.H`` with each pair's first row in
+    ``c.rl`` (K1), or one a pair, ``c.pair_h`` and ``c.pair_rl`` (K6).
+    With bf16 updates a CTA takes a piece and the whole dst tile, or a
+    128 x 64 half at T = 128 when both operands are fp32 or the chunk has
+    fewer pieces than the card has SMs (as ``pipelined.launch_chunks``
+    chooses)."""
+    lib = _build.get_lib()
+    stream = _build.stream_ptr(pool.device)
+    T = pool.shape[1]
+    if bf16:
         sms = piece_ctas(pool.device) // 2
-        scratch, count = piece_buffers(plan, T, pool.device)
-    for c in plan:
-        # the tensor-core kernel covers a T x T dst tile a CTA, or a
-        # 128 x 64 half when whole tiles would leave SMs without a CTA
-        half = bf16 and T == 128 and c.npiece < sms
-        if bf16:
-            # operand tiles are panels of earlier columns, which no chunk
-            # of this list writes: gathering before the launch is exact
-            cache[: c.cu.numel()].copy_(src.index_select(0, c.cu))
-            if c.mode == "full" and a_cached:
-                variant, a_src, a_idx = 2, cache, c.a_slot
-            else:
-                variant, a_src, a_idx = 1, pool, c.pair_a
-            b_src, b_idx = cache, c.b_slot
-        else:
-            variant, a_src, a_idx, b_src, b_idx = 0, pool, c.pair_a, src, c.pair_b
+        scratch, count = piece_buffers(chunks, T, pool.device)
+    halves = 0
+    for c in chunks:
+        variant, Xa, Xb, pos_a, pos_b = operands(c)
+        pair_h = getattr(c, "pair_h", None)
+        rl, H = (c.rl, c.H) if pair_h is None else (c.pair_rl, T)
+        half = bf16 and T == 128 and (variant == 3 or c.npiece < sms)
         err = lib.pastix_ll_gemm_scatter(
-            pool.data_ptr(), a_src.data_ptr(), b_src.data_ptr(),
-            c.seg_ptr.data_ptr(), c.seg_dst.data_ptr(), a_idx.data_ptr(),
-            b_idx.data_ptr(), c.rl.data_ptr(),
+            pool.data_ptr(), Xa.data_ptr(), Xb.data_ptr(),
+            c.seg_ptr.data_ptr(), c.seg_dst.data_ptr(), pos_a.data_ptr(),
+            pos_b.data_ptr(), rl.data_ptr(),
+            None if pair_h is None else pair_h.data_ptr(),
             None if d is None else d.data_ptr(),
             None if d is None else c.pair_k.data_ptr(),
             c.piece_ptr.data_ptr(), c.piece_seg.data_ptr(),
             c.seg_piece_ptr.data_ptr(), c.piece_slot.data_ptr(),
             scratch.data_ptr() if bf16 else None,
             count.data_ptr() if bf16 else None,
-            c.nseg, c.npiece, T, c.H, variant, T // 2 if half else T, stream,
+            c.nseg, c.npiece, T, H, variant, T // 2 if half else T, stream,
         )
-        _build.check(err, "gemm_scatter_ll")
-        gemm_scatter_ll.launches += 1
-        gemm_scatter_ll.half_launches += half
-    return pool
+        _build.check(err, wrapper.__name__)
+        wrapper.launches += 1
+        halves += half
+    return halves
 
 
 gemm_scatter_ll.launches = 0  # K1 launches (one per chunk)

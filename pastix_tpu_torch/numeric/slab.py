@@ -16,14 +16,19 @@ The TPU words (``pack``: slab and window offsets, ``r0``, the height
 class, and the double-buffer flags; ``wcur``/``acur``/``bcur`` and the
 prefetch cursors) are decoded once, at analysis time, by
 :func:`slab_plan` into what the CUDA kernel reads: per chunk, the
-windows' dst tiles in window order, and per dst tile its pairs (a tile,
-b tile, source column, r0, ha) in plan order.
+windows' dst tiles in window order, each one dst segment of its pairs
+(a tile, b tile, source column, first row ``rl = r0`` and height
+``h = ha`` of its row window) in plan order, cut into K1's pieces.
 
-``gemm_scatter_slab`` launches the hand-written CUDA kernel
-(``csrc/slab_gemm_scatter.cu``) for a pool on a CUDA device and its
-plain twin ``gemm_scatter_slab_ref`` for a pool on the CPU, plain and
-scaled (``d``, LDLᵗ).  As the reference's kernel does, the scaled form
-multiplies the fp32 a-slab by the pivots and rounds once.
+``gemm_scatter_slab`` (K6) has no source of its own: it launches K1's
+kernel (``csrc/ll_gemm_scatter.cu``) through K1's launcher
+(``leftlook.launch_ll``) with a window height a pair, a and
+b both read from the fp32 pool, for a pool on a CUDA device; bf16
+updates run on the tensor-core body ``csrc/seg_mma.cuh`` (both operands
+rounded as their fragments load), fp32 updates on K1's fp32 body.  A
+pool on the CPU goes through the plain twin ``gemm_scatter_slab_ref``.
+Plain and scaled (``d``, LDLᵗ): as the reference's kernel does, the
+scaled form multiplies the fp32 a-slab by the pivots and rounds once.
 """
 
 from __future__ import annotations
@@ -33,9 +38,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from pastix_tpu_torch import _build
 from pastix_tpu_torch.numeric.kernels import check_pool, check_variant, is_bf16
-from pastix_tpu_torch.numeric.pipelined import pairs_ref
+from pastix_tpu_torch.numeric.leftlook import launch_ll, piece_ctas
+from pastix_tpu_torch.numeric.pipelined import (
+    PipeChunk, pairs_ref, piece_fields,
+)
 
 # flag bits (packed with the offsets into one int32 word per pair)
 _B_VALID = 1 << 0
@@ -356,29 +363,20 @@ def build_slab_plan(
 
 
 @dataclasses.dataclass
-class SlabChunk:
-    """One chunk of a slab plan as the kernel reads it: int64 tensors on
-    the pool's device (r0 and ha int32).  Dst tiles are grouped by
-    window, in window order; each is one segment of pairs."""
+class SlabChunk(PipeChunk):
+    """One chunk of a slab plan as the kernel reads it: K3's tables
+    (:class:`~pastix_tpu_torch.numeric.pipelined.PipeChunk`, its pieces
+    included; ``pair_a``/``pair_b`` in the a- and b-slabs, ``pair_k``
+    always set) plus each pair's row window, int64 tensors on the pool's
+    device.  Dst tiles are grouped by window, in window order; each is
+    one segment of pairs."""
 
-    n_pairs: int
-    seg_ptr: torch.Tensor  # [nseg + 1] pair offsets of the dst tiles
-    seg_dst: torch.Tensor  # [nseg] pool index of each dst tile
-    pair_a: torch.Tensor  # [n] pool index of a (in the a-slab)
-    pair_b: torch.Tensor  # [n] pool index of b (in the b-slab)
-    pair_k: torch.Tensor  # [n] source column (LDLᵗ d)
-    pair_r0: torch.Tensor  # [n] first row of a's bounded rows
-    pair_ha: torch.Tensor  # [n] number of a's bounded rows
-
-    @property
-    def nseg(self) -> int:
-        return self.seg_dst.numel()
+    pair_rl: torch.Tensor = None  # [n] first row of a's bounded rows (r0)
+    pair_h: torch.Tensor = None  # [n] number of a's bounded rows (ha)
 
     def pairs(self):
-        """(a, b, dst, k, r0, ha) of every pair, in kernel order."""
-        dst = torch.repeat_interleave(self.seg_dst, self.seg_ptr.diff())
-        return (self.pair_a, self.pair_b, dst, self.pair_k, self.pair_r0,
-                self.pair_ha)
+        """(a, b, dst, k, rl, h) of every pair, in kernel order."""
+        return super().pairs() + (self.pair_rl, self.pair_h)
 
 
 def decode_slab_chunk(t, T: int):
@@ -403,11 +401,15 @@ def decode_slab_chunk(t, T: int):
 
 def slab_plan(plan: SlabPlan, T: int, device) -> list:
     """Kernel tables (:class:`SlabChunk`) of a :func:`build_slab_plan`
-    result, one per chunk, uploaded to ``device``.
+    result, one per chunk, uploaded to ``device``, the dst segments cut
+    into K1's pieces for its card (``pipelined.piece_fields``).
 
     Within a chunk a dst tile lies in one window (a window holds the
     dsts of one cluster), so no two segments share a dst; a window cut by
     a chunk boundary lands in two chunks, which run in order."""
+    ctas = piece_ctas(device)
+    tens = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.int64),
+                                     device=device)
     out = []
     for t in plan.chunks:
         a, b, dst, k, r0, ha = decode_slab_chunk(t, T)
@@ -416,14 +418,12 @@ def slab_plan(plan: SlabPlan, T: int, device) -> list:
         order = np.argsort(dst, kind="stable")
         a, b, dst, k, r0, ha = (x[order] for x in (a, b, dst, k, r0, ha))
         starts = np.flatnonzero(np.r_[True, dst[1:] != dst[:-1]])
-        tens = lambda x, dt=torch.int64: torch.as_tensor(
-            np.ascontiguousarray(x), dtype=dt, device=device)
+        seg_ptr = np.r_[starts, a.size]
         out.append(SlabChunk(
-            n_pairs=int(a.size),
-            seg_ptr=tens(np.r_[starts, a.size]), seg_dst=tens(dst[starts]),
-            pair_a=tens(a), pair_b=tens(b), pair_k=tens(k),
-            pair_r0=tens(r0, torch.int32), pair_ha=tens(ha, torch.int32),
-        ))
+            n_pairs=int(a.size), seg_ptr=tens(seg_ptr),
+            seg_dst=tens(dst[starts]), pair_a=tens(a), pair_b=tens(b),
+            pair_k=tens(k), pair_rl=tens(r0), pair_h=tens(ha),
+            **piece_fields(seg_ptr, a.size, ctas, tens)))
     return out
 
 
@@ -433,8 +433,10 @@ def gemm_scatter_slab(pool: torch.Tensor, chunks, update_dtype=None, *,
     for every pair of a :func:`slab_plan`, in place: ``op`` rounds to
     ``update_dtype`` after the scaling, products accumulate in fp32.  The
     plan's fallback pairs are not applied (the caller runs them through
-    K3).  A pool on a CUDA device goes through kernel K6, one launch per
-    chunk, in order on the current stream; a pool on the CPU through
+    K3).  A pool on a CUDA device goes through kernel K6, one launch of
+    K1's kernel per chunk with a window height a pair, in order on the
+    current stream (bf16 updates: a CTA per piece and 128 x 64 half at
+    T = 128, as K3 runs fp32 operands); a pool on the CPU through
     :func:`gemm_scatter_slab_ref`."""
     check_pool(pool)
     check_variant(pool, d, None, [])
@@ -443,18 +445,9 @@ def gemm_scatter_slab(pool: torch.Tensor, chunks, update_dtype=None, *,
         return gemm_scatter_slab_ref(pool, chunks, update_dtype, d=d)
     if pool.device.type != "cuda":
         raise ValueError(f"unsupported device {pool.device}")
-    lib = _build.get_lib()
-    stream = _build.stream_ptr(pool.device)
-    for c in chunks:
-        err = lib.pastix_slab_gemm_scatter(
-            pool.data_ptr(), c.seg_ptr.data_ptr(), c.seg_dst.data_ptr(),
-            c.pair_a.data_ptr(), c.pair_b.data_ptr(),
-            None if d is None else d.data_ptr(), c.pair_k.data_ptr(),
-            c.pair_r0.data_ptr(), c.pair_ha.data_ptr(), c.nseg,
-            pool.shape[1], int(bf16), stream,
-        )
-        _build.check(err, "gemm_scatter_slab")
-        gemm_scatter_slab.launches += 1
+    launch_ll(pool, chunks,
+              lambda c: (3 if bf16 else 0, pool, pool, c.pair_a, c.pair_b),
+              bf16, d, gemm_scatter_slab)
     return pool
 
 
@@ -465,14 +458,14 @@ gemm_scatter_slab.twin_launches = 0  # calls of the plain twin
 def gemm_scatter_slab_ref(pool: torch.Tensor, chunks, update_dtype=None,
                           *, d=None):
     """Plain PyTorch twin of :func:`gemm_scatter_slab`, on any device:
-    each chunk's pairs as a pair list with a's rows outside [r0, r0 + ha)
+    each chunk's pairs as a pair list with a's rows outside [rl, rl + h)
     set to zero (a scaled, then rounded once), chunks in order."""
     check_pool(pool)
     check_variant(pool, d, None, [])
     is_bf16(update_dtype)
     gemm_scatter_slab.twin_launches += 1
     for c in chunks:
-        a, b, dst, k, r0, ha = c.pairs()
+        a, b, dst, k, rl, h = c.pairs()
         pairs_ref(pool, pool, pool, a, b, dst, update_dtype, d=d, pair_k=k,
-                  rows=(r0, ha))
+                  rows=(rl, h))
     return pool

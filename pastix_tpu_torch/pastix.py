@@ -506,12 +506,16 @@ class Pastix:
     # ------------------------------------------------------------------
 
     @_pinned
-    def factorize(self) -> Factors:
+    def factorize(self, values: Optional[np.ndarray] = None) -> Factors:
         """Coefinit, the factorization of the configured kind and the
         inverse diagonal tiles, on the device; returns when the device has
         finished.  LDLᵗ and LU clamp pivots below
         ``static_pivoting_threshold · max|A|`` and report their number in
-        ``report.static_pivots``."""
+        ``report.static_pivots``.  ``values`` (the reference's new values
+        on the cached analysis) is not ported and raises."""
+        if values is not None:
+            raise _not_ported("factorize(values) (new values on the cached "
+                              "analysis)", "A2")
         cfg = self.config
         if self.layout is None:
             self.analyze()
@@ -704,6 +708,18 @@ class Pastix:
         self.report.solve_time = time.perf_counter() - t0
         return self._unperm_sol(x_ext)
 
+    # the reference's members that are not ported yet: each raises,
+    # naming its ROADMAP item
+
+    def as_preconditioner(self):
+        raise _not_ported("as_preconditioner", "A2")
+
+    def clean(self):
+        raise _not_ported("clean", "A2")
+
+    def dump_trace(self, path: str) -> None:
+        raise _not_ported("dump_trace (phase spans)", "A10")
+
 
 def spsolve(A, b, config: Optional[PastixConfig] = None, device=None,
             **kw) -> np.ndarray:
@@ -711,3 +727,11 @@ def spsolve(A, b, config: Optional[PastixConfig] = None, device=None,
     if config is None:
         config = PastixConfig(**kw)
     return Pastix(A, config, device=device).solve(b)
+
+
+def pastix(n: int, colptr: np.ndarray, rowind: np.ndarray, values: np.ndarray,
+           b: np.ndarray, config: Optional[PastixConfig] = None,
+           base: int = 0):
+    """The reference's array API (``pastix_tpu.pastix.pastix``), not
+    ported yet: raises."""
+    raise _not_ported("the array API pastix()", "A2")

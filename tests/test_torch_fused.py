@@ -11,6 +11,7 @@ reference's Pallas kernels in interpret mode, on the CPU.
   from three bf16 passes where the port multiplies in fp32.  K10 also on
   a schedule cut into two chunks (a segment split between them; one
   interpret-mode pallas_call per chunk).
+- K10's and K9's plans carry K3's pieces, covering each segment once.
 - What the kernels refuse: a dst tile that is also an a tile (or a b
   tile read from the same pool), a ``group > 1`` schedule for K10, and
   flags that do not mark the runs of equal dst.
@@ -116,19 +117,22 @@ def test_blockspec_matches_reference(data, variant, upd):
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
 
 
-@pytest.mark.parametrize("chunk", [8192, 17])
+@pytest.mark.parametrize("chunk", [8192, 17, pytest.param(None, id="fused")])
 def test_blockspec_plan_pieces_cover_each_segment(data, chunk):
-    """K10's plan carries K3's pieces (cut at 8 pairs where no card is
-    counted): consecutive runs of each segment's pairs, in order, slots
-    0.. for the pieces of a cut segment and -1 for the others; the
-    triples plus one segment of 20 pairs, in one chunk and in chunks of
-    17."""
+    """K10's plan (and K9's, ``chunk`` None: one list, no chunks) carries
+    K3's pieces (cut at 8 pairs where no card is counted): consecutive
+    runs of each segment's pairs, in order, slots 0.. for the pieces of a
+    cut segment and -1 for the others; the triples plus one segment of 20
+    pairs, in one chunk and in chunks of 17."""
     _, _, _, ga, gb, gd, _ = data
     ga, gb = np.r_[ga, ga[:20]], np.r_[gb, gb[:20]]
     gd = np.r_[np.where(gd == NPOOL - 1, NPOOL - 2, gd),
                np.full(20, NPOOL - 1)].astype(np.int32)
-    plan = FU.blockspec_plan(build_pipeline_schedule(ga, gb, gd, chunk=chunk),
-                             "cpu")
+    if chunk is None:
+        plan = FU.fused_plan(*FU.sort_triples(ga, gb, gd), device="cpu")
+    else:
+        plan = FU.blockspec_plan(build_pipeline_schedule(ga, gb, gd,
+                                                         chunk=chunk), "cpu")
     assert sum(c.n_pairs for c in plan) == gd.size
     assert sum(c.nslot for c in plan) > 0
     for c in plan:

@@ -7,7 +7,8 @@ JAX, run them without the repository's conftest (which imports JAX):
 
 Tolerances: K1, K3, K5, K6, K9, K10, K11 and K12 max|kernel - twin| <=
 1e-4 max|twin| over the touched tiles, K2 <= 1e-5 max|twin| (summation order
-only; K1 and K2 also repeat bit for bit), K4 <= 1e-5 max|twin| with equal clamp counts, K7 and K8 <= 1e-5
+only; K1 and K2 also repeat bit for bit, and K3-K6 and K9-K12 wherever a
+test runs them twice), K4 <= 1e-5 max|twin| with equal clamp counts, K7 and K8 <= 1e-5
 max|twin| (a right-looking loop against a left-looking one), K13 <=
 1e-5 max|twin| (exact copies, summed in another order); the end-to-end
 solves to a residual of 1e-10.
@@ -644,7 +645,7 @@ def test_k5_matches_twin(cuda, T, upd, kind, case):
                          ids=["plain", "d"])
 def test_k6_matches_twin(cuda, T, upd, kind, monkeypatch):
     """K6 on the busiest level's slab plan (C=4, H=8, row bounds, the cost
-    gate off, chunks of 64 pairs)."""
+    gate off, chunks of 64 pairs); two runs bit-identical."""
     monkeypatch.setenv("PASTIX_SLAB_GATE", "0")
     s, lv = _rl_level(T, cuda, kind, nx=12)
     lay, f = s.layout, s.factors
@@ -658,8 +659,57 @@ def test_k6_matches_twin(cuda, T, upd, kind, monkeypatch):
     before = SB.gemm_scatter_slab.launches
     got = SB.gemm_scatter_slab(f.pool.clone(), plan, upd, **kw)
     assert SB.gemm_scatter_slab.launches == before + len(plan)
+    assert torch.equal(got, SB.gemm_scatter_slab(f.pool.clone(), plan, upd,
+                                                 **kw))
     ref = SB.gemm_scatter_slab_ref(f.pool.clone(), plan, upd, **kw)
     _close_dst(got, ref, torch.cat([c.seg_dst for c in plan]))
+
+
+def _planted_slab(T, dev, seed=0):
+    """One K6 chunk on random tiles: 21 dst tiles after 48 source tiles,
+    the first dst with 600 pairs (cut into pieces), the others 3 each;
+    the pairs' heights cycle through T/4, T/2, 3T/4 and T, each window
+    starting at a random multiple of 8 (so 16-row groups the window cuts
+    in half).  Returns (pool, [chunk], d)."""
+    rng = np.random.default_rng(seed + T)
+    nsrc, lens = 48, [600] + [3] * 20
+    gd = np.repeat(nsrc + np.arange(len(lens)), lens)
+    n = gd.size
+    h = (T // 4) * (np.arange(n) % 4 + 1)
+    rl = 8 * rng.integers(0, (T - h) // 8 + 1)
+    assert (rl % 16 == 8).any() and (rl + h <= T).all()
+    tens = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)
+    seg_ptr = np.r_[0, np.cumsum(lens)]
+    chunk = SB.SlabChunk(
+        n_pairs=n, seg_ptr=tens(seg_ptr), seg_dst=tens(gd[seg_ptr[:-1]]),
+        pair_a=tens(rng.integers(0, nsrc, n)),
+        pair_b=tens(rng.integers(0, nsrc, n)),
+        pair_k=tens(rng.integers(0, 8, n)), pair_rl=tens(rl), pair_h=tens(h),
+        **PL.piece_fields(seg_ptr, n, LL.piece_ctas(dev), tens))
+    assert chunk.nslot > 1
+    pool = torch.tensor(rng.standard_normal((nsrc + len(lens), T, T)),
+                        dtype=torch.float32, device=dev)
+    d = torch.tensor(rng.uniform(0.5, 2.0, (8, T)), dtype=torch.float32,
+                     device=dev)
+    return pool, [chunk], d
+
+
+@pytest.mark.parametrize("T", [32, 64, 128])
+@pytest.mark.parametrize("upd", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("kind", [Factorization.LLT, Factorization.LDLT],
+                         ids=["plain", "d"])
+def test_k6_planted_heights(cuda, T, upd, kind):
+    """K6 on :func:`_planted_slab`: pairs of all four heights in one
+    launch, windows that start inside a 16-row group, a segment cut into
+    pieces; against the twin, two runs bit-identical."""
+    pool, plan, d = _planted_slab(T, cuda)
+    kw = {"d": d} if kind == Factorization.LDLT else {}
+    got = SB.gemm_scatter_slab(pool.clone(), plan, upd, **kw)
+    assert torch.equal(got, SB.gemm_scatter_slab(pool.clone(), plan, upd,
+                                                 **kw))
+    ref = SB.gemm_scatter_slab_ref(pool.clone(), plan, upd, **kw)
+    _close_dst(got, ref, plan[0].seg_dst)
 
 
 def _spd_tiles(B, T, dev, seed=0):
@@ -776,16 +826,37 @@ def _pairs_kw(kind, f, lv):
 @pytest.mark.parametrize("kind", [Factorization.LLT, Factorization.LDLT,
                                   Factorization.LU],
                          ids=["plain", "d", "src_pool"])
-def test_k9_matches_twin(cuda, T, upd, kind):
-    """K9 on the busiest right-looking level's sorted triples."""
-    s, lv = _rl_level(T, cuda, kind)
-    gk, kw = _pairs_kw(kind, s.factors, lv)
-    plan = FU.fused_plan(*FU.sort_triples(lv.gemm_a, lv.gemm_b, lv.gemm_d,
-                                          gk), device=cuda)
-    pool = s.factors.pool
+@pytest.mark.parametrize("case", ["level", "pieces"])
+def test_k9_matches_twin(cuda, T, upd, kind, case):
+    """K9 on the busiest right-looking level's sorted triples
+    (``level``), or on random tiles (``pieces``: 21 dst tiles after 48
+    sources, one with 600 pairs, cut into pieces, 20 with 3); two runs
+    bit-identical."""
+    if case == "level":
+        s, lv = _rl_level(T, cuda, kind)
+        gk, kw = _pairs_kw(kind, s.factors, lv)
+        ga, gb, gd, pool = lv.gemm_a, lv.gemm_b, lv.gemm_d, s.factors.pool
+    else:
+        rng = np.random.default_rng(T)
+        nsrc, lens = 48, [600] + [3] * 20
+        gd = np.repeat(nsrc + np.arange(len(lens)), lens)
+        ga, gb = (rng.integers(0, nsrc, gd.size) for _ in range(2))
+        rand = lambda *shape: torch.tensor(rng.standard_normal(shape),
+                                           dtype=torch.float32, device=cuda)
+        pool = rand(nsrc + len(lens), T, T)
+        gk, kw = None, {}
+        if kind == Factorization.LDLT:  # the pivots, or LU's other pool
+            gk, kw = rng.integers(0, 8, gd.size), {"d": 1.0 + rand(8, T).abs()}
+        elif kind == Factorization.LU:
+            kw = {"src_pool": rand(nsrc + len(lens), T, T)}
+    plan = FU.fused_plan(*FU.sort_triples(ga, gb, gd, gk), device=cuda)
+    if case == "pieces":
+        assert plan[0].nslot > 1
     before = FU.gemm_scatter_fused.launches
     got = FU.gemm_scatter_fused(pool.clone(), plan, upd, **kw)
     assert FU.gemm_scatter_fused.launches == before + len(plan)
+    assert torch.equal(got, FU.gemm_scatter_fused(pool.clone(), plan, upd,
+                                                  **kw))
     ref = FU.gemm_scatter_fused_ref(pool.clone(), plan, upd, **kw)
     _close_e2(got, ref, plan)
 

@@ -12,9 +12,8 @@ aligned Schur extension on its own.
 """
 
 import dataclasses
+import json
 import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -32,6 +31,7 @@ from pastix_tpu_torch.generators import laplacian_2d, poisson_3d
 from pastix_tpu_torch.pastix import Pastix
 
 import torch
+from test_torch_import import fresh_interpreter
 
 # xdist runs six test files at once: one intra-op thread per process keeps
 # six full-width PyTorch thread pools from oversubscribing the cores
@@ -181,33 +181,8 @@ def test_native_library_named_by_host_cpu():
 
 def test_port_runs_without_jax_or_pastix_tpu():
     """A fresh interpreter imports the port, runs spsolve, a Schur solve
-    and an LU solve on the CPU, and never loads jax or a pastix_tpu
-    module."""
-    code = (
-        "import sys\n"
-        "import numpy as np\n"
-        "import pastix_tpu_torch as P\n"
-        "from pastix_tpu_torch.generators import poisson_3d\n"
-        "A = poisson_3d(5)\n"
-        "b = A.to_scipy() @ np.ones(A.n)\n"
-        "x = P.spsolve(A, b, device='cpu', tile_size=16)\n"
-        "assert np.abs(x - 1).max() < 1e-9\n"
-        "s = P.Pastix(A, P.PastixConfig(tile_size=16), device='cpu')\n"
-        "s.set_schur_unknowns(np.arange(A.n - 25, A.n))\n"
-        "x = s.solve_with_schur(b)\n"
-        "assert s.get_schur().shape == (25, 25)\n"
-        "assert np.abs(x - 1).max() < 1e-9\n"
-        "from pastix_tpu_torch.generators import convection_diffusion_3d\n"
-        "C = convection_diffusion_3d(5)\n"
-        "x = P.spsolve(C, C.to_scipy() @ np.ones(C.n), device='cpu',\n"
-        "              tile_size=32, factorization=P.Factorization.LU)\n"
-        "assert np.abs(x - 1).max() < 1e-9\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'pastix_tpu')\n"
-        "             or m.startswith(('jax.', 'jaxlib', 'pastix_tpu.')))\n"
-        "assert not bad, bad\n"
-    )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = ROOT
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, r.stderr
+    and an LU solve on the CPU (``test_torch_import.SOLVES``), and never
+    loads jax or a pastix_tpu module."""
+    rc, lines, err = fresh_interpreter()
+    assert rc == 0, err
+    assert json.loads(lines[1]) == []

@@ -1,8 +1,12 @@
 """The port imports no JAX, nothing of the JAX package ``pastix_tpu``, and
 uses no Pallas, torch.compile or fused attention.  The import check runs
-in a subprocess: conftest.py has already imported JAX into this one."""
+in a subprocess: conftest.py has already imported JAX into this one.
+That subprocess then runs tests/test_torch_host.py's solves (one fresh
+interpreter serves both)."""
 
 import ast
+import functools
+import json
 import os
 import subprocess
 import sys
@@ -48,22 +52,57 @@ SLICE_MODULES = [
 ]
 
 
-def test_import_leaves_jax_out():
+# the port's front doors on the CPU, run after the imports (held by
+# tests/test_torch_host.py::test_port_runs_without_jax_or_pastix_tpu)
+SOLVES = (
+    "import numpy as np\n"
+    "from pastix_tpu_torch.generators import poisson_3d\n"
+    "A = poisson_3d(5)\n"
+    "b = A.to_scipy() @ np.ones(A.n)\n"
+    "x = P.spsolve(A, b, device='cpu', tile_size=16)\n"
+    "assert np.abs(x - 1).max() < 1e-9\n"
+    "s = P.Pastix(A, P.PastixConfig(tile_size=16), device='cpu')\n"
+    "s.set_schur_unknowns(np.arange(A.n - 25, A.n))\n"
+    "x = s.solve_with_schur(b)\n"
+    "assert s.get_schur().shape == (25, 25)\n"
+    "assert np.abs(x - 1).max() < 1e-9\n"
+    "from pastix_tpu_torch.generators import convection_diffusion_3d\n"
+    "C = convection_diffusion_3d(5)\n"
+    "x = P.spsolve(C, C.to_scipy() @ np.ones(C.n), device='cpu',\n"
+    "              tile_size=32, factorization=P.Factorization.LU)\n"
+    "assert np.abs(x - 1).max() < 1e-9\n"
+)
+
+
+@functools.cache
+def fresh_interpreter():
+    """One fresh interpreter for both checks that need one: it imports
+    every module of the slice, prints the jax and pastix_tpu modules then
+    loaded (one JSON line), runs :data:`SOLVES` and prints them again.
+    Returns (exit code, stdout lines, stderr)."""
     code = (
-        "import importlib, sys\n"
+        "import importlib, json, sys\n"
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "import pastix_tpu_torch as P\n"
         "P.Pastix, P.spsolve\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'pastix_tpu') "
-        "or m.startswith(('jax.', 'jaxlib', 'pastix_tpu.')))\n"
-        "assert not bad, bad\n"
+        "bad = lambda: sorted(m for m in sys.modules if m in ('jax', "
+        "'pastix_tpu') or m.startswith(('jax.', 'jaxlib', 'pastix_tpu.')))\n"
+        "print(json.dumps(bad()), flush=True)\n"
+        + SOLVES +
+        "print(json.dumps(bad()))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, r.stderr
+    return r.returncode, r.stdout.splitlines(), r.stderr
+
+
+def test_import_leaves_jax_out():
+    _, lines, err = fresh_interpreter()
+    assert lines, err
+    assert json.loads(lines[0]) == []
 
 
 def _sources():

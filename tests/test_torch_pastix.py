@@ -132,6 +132,33 @@ def test_config_fields_raise_or_are_taken(field, value, item):
         Pastix(poisson_3d(4), cfg, device="cpu")
 
 
+@pytest.mark.parametrize("member,item", [
+    ("factorize", "A2"), ("as_preconditioner", "A2"), ("clean", "A2"),
+    ("dump_trace", "A10"), ("pastix", "A2"),
+])
+def test_unported_members_raise(member, item):
+    """The reference's members the port lacks raise naming their ROADMAP
+    item, with the reference's signatures; ``factorize()`` without
+    values still factors."""
+    A = poisson_3d(4)
+    s = Pastix(A, PastixConfig(tile_size=8), device="cpu")
+    M = A.to_scipy().tocsc()
+    calls = {
+        "factorize": lambda: s.factorize(M.data),
+        "as_preconditioner": s.as_preconditioner,
+        "clean": s.clean,
+        "dump_trace": lambda: s.dump_trace("trace.json"),
+        "pastix": lambda: pastix_tpu_torch.pastix.pastix(
+            A.n, M.indptr, M.indices, M.data, np.ones(A.n), PastixConfig(),
+            base=0),
+    }
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}\\)"):
+        calls[member]()
+    if member == "factorize":
+        f = s.factorize()
+        assert f is s.factors and np.isfinite(f.pool.numpy()).all()
+
+
 def _layout_arrays(lay):
     """Every array of a layout, by name, as SolverLayout.save writes
     them."""

@@ -17,7 +17,9 @@ scaled, bf16 and fp32 updates, with row bounds, on random pools (numpy
 seed 0) zeroed outside the bounds (a factor is structurally zero there):
 rtol = atol = 1e-3, as tests/test_slab.py holds the reference's kernel.
 The reference's kernel itself is not run: its interpret mode costs
-minutes.
+minutes.  K6's own tables (each pair's row window, K1's pieces) are held
+to the decoded plan, and the update summed piece by piece, as the kernel
+sums it, to the twin (1e-5 of max|ref|).
 """
 
 import jax.numpy as jnp
@@ -167,10 +169,69 @@ def test_row_bounds_bound_rows(layout):
     """At T=32 some pairs run fewer than T rows; at T <= 16 none do (the
     reference's quantum rule)."""
     lay, doc = layout
-    ha = torch.cat([c.pair_ha for lv in lay.levels if lv.gemm_a.size
+    ha = torch.cat([c.pair_h for lv in lay.levels if lv.gemm_a.size
                     for c in SB.slab_plan(_plan(SB, lay, doc, lv, "c4h8"),
                                           lay.T, "cpu")])
     assert bool((ha < lay.T).any()) == (lay.T >= 32)
+
+
+def test_slab_plan_windows_and_pieces(layout, monkeypatch):
+    """K6's kernel tables on the widest level (configuration (4, 8, 2, 2),
+    gate off, chunks of 64 pairs): each pair's window (rl, h) is the
+    decoded (r0, ha) in dst order; the pieces (cut at 8 pairs where no
+    card is counted) cover each segment's pairs once, in order, and a
+    segment is cut exactly where it is longer than 8 (laplacian_2d(10)
+    at T=8 has none, the Poisson levels have some); and the
+    update summed as the kernel sums it (each piece's products of
+    round(a d) on its window and round(b), a cut segment's pieces added
+    in piece order, then subtracted once) equals the twin's (1e-5 of
+    max|ref|)."""
+    monkeypatch.setenv("PASTIX_SLAB_GATE", "0")
+    lay, doc = layout
+    T = lay.T
+    sp_ = _plan(SB, lay, doc, _levels(lay)["widest"], "c4h8", chunk=64)
+    plan = SB.slab_plan(sp_, T, "cpu")
+    rng = np.random.default_rng(3)
+    P = torch.from_numpy(
+        rng.standard_normal((lay.npool, T, T)).astype(np.float32))
+    d = torch.from_numpy(
+        rng.uniform(0.5, 2.0, (lay.nbc, T)).astype(np.float32))
+    rows = torch.arange(T)[:, None]
+    got, cuts, longest = P.clone(), 0, 0
+    for t, c in zip((t for t in sp_.chunks if SB.decode_slab_chunk(
+            t, T)[0].size), plan):
+        dec = SB.decode_slab_chunk(t, T)
+        order = np.argsort(dec[2], kind="stable")
+        a, b, dst, k, rl, h = (x.numpy() for x in c.pairs())
+        for want, have in zip(dec, (a, b, dst, k, rl, h)):
+            np.testing.assert_array_equal(have, want[order])
+        sp, pp, ps, spp, slot = (x.numpy() for x in (
+            c.seg_ptr, c.piece_ptr, c.piece_seg, c.seg_piece_ptr,
+            c.piece_slot))
+        assert pp[0] == 0 and pp[-1] == c.n_pairs
+        assert (np.diff(pp) > 0).all() and (np.diff(pp) <= 8).all()
+        np.testing.assert_array_equal(pp[spp], sp)
+        np.testing.assert_array_equal(
+            np.repeat(np.arange(c.nseg), np.diff(spp)), ps)
+        cut = np.diff(spp)[ps] > 1
+        np.testing.assert_array_equal(slot[cut], np.arange(c.nslot))
+        assert (slot[~cut] == -1).all()
+        cuts += c.nslot
+        longest = max(longest, int(np.diff(sp).max()))
+        for g in range(c.nseg):
+            total = torch.zeros(T, T)
+            for p in range(spp[g], spp[g + 1]):
+                part = torch.zeros(T, T)
+                for i in range(pp[p], pp[p + 1]):
+                    win = (rows >= rl[i]) & (rows < rl[i] + h[i])
+                    ai = (P[a[i]] * d[k[i]]).bfloat16().float() * win
+                    part += ai @ P[b[i]].bfloat16().float().T
+                total += part
+            got[c.seg_dst[g]] -= total
+    assert (cuts > 0) == (longest > 8)
+    ref = SB.gemm_scatter_slab_ref(P.clone(), plan, torch.bfloat16, d=d)
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
 
 
 def test_cpu_pool_runs_the_twin(layout):
