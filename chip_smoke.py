@@ -155,6 +155,30 @@ prints the final ``ok`` line:
    ``probe_ref`` (1e-5 max|ref|), then K13, its twin and
    ``index_select`` of the same copies timed, µs per copy, GB/s and the
    bytes in flight logged against the bytes bound;
+16. front door and refinement: on ``poisson_3d(--nx)`` (the main path's
+   configuration, one host analysis saved with ``IOStrategy.SAVE`` and
+   loaded by every later solver) the device loops ``CG``, ``GMRES`` and
+   ``BICGSTAB``, then ``CG`` with ``device_refine=False`` and with
+   ``fast_solve=False``: each solver analyzed, factorized and solved
+   twice (the second solve timed), residual <= 1e-10, its iterations, its
+   host steps and its preconditioner applications; K1 and K2 must launch
+   (no K2 under ``fast_solve=False``, whose factors hold no inverse
+   diagonal tiles; its peak device memory beside the fast path's), no
+   twin may run, and the timed solve launches K2 at most twice an
+   application; then ``factorize(values)`` with the stored diagonal
+   raised by 10 % (refactor ms beside the first factorize's) against a
+   fresh solver on the new matrix (equal iterations, solutions within
+   1e-12, max|pool difference| logged), ``as_preconditioner`` under
+   ``scipy.sparse.linalg.cg`` to 1e-10 within phase 4's iterations + 2,
+   the array API ``pastix()`` with the phase window ORDERING..ANALYSE (no
+   solution, no factors) and ORDERING..CLEAN (residual <= 1e-10), and
+   ``clean()`` (the allocated bytes back within 64 MiB of their level
+   before the solver); on ``convection_diffusion_3d(--lu-nx)`` LU
+   ``GMRES`` and ``BICGSTAB`` the same way (K1, K2 and K4 launched); at
+   ``poisson_3d(24)`` once each: ``MurgeSolver`` (graph, assembly, solve,
+   then new values on the cached analysis), ``dspsolve`` over 4 CSCD
+   parts and ``cli.main(["-lap3", "24", "--refine", "gmres",
+   "--steps"])`` (exit code 0);
 
 then the card's nvidia-smi line, one JSON line of the kernels (each
 variant on its own line of the list, ``launches`` from the path that runs
@@ -179,6 +203,8 @@ TOL_K7 = 1e-5  # the same for the fused Cholesky + inverse (K7, K8)
 TOL_K13 = 1e-5  # the copy probe's (2, D, T) sums against the closed form
 TOL_RES = 1e-10  # fp64 ||b - A x|| / ||b|| after refinement
 TOL_S = 1e-4  # max|S - S_ref| / max|S_ref| with fp32 updates
+TOL_REFAC = 1e-12  # factorize(values) against a fresh solver, relative
+CLEAN_SLACK = 64 * 2 ** 20  # bytes clean() may leave allocated
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -585,7 +611,8 @@ def read_counts(path, need, forbid=()):
     launches = {k: fn.launches for k, fn in counters().items()}
     twins = {k: fn.twin_launches for k, fn in counters().items()}
     log(f"  {path}: launches {launches}, twin calls {twins}")
-    if (min(launches[k] for k in need) == 0 or max(twins.values()) != 0
+    if (min((launches[k] for k in need), default=1) == 0
+            or max(twins.values()) != 0
             or any(launches[k] for k in forbid)):
         raise AssertionError(
             f"the {path} did not run through all of {need}, ran one of "
@@ -2031,6 +2058,293 @@ def probe_harness(dev, errs):
 _SASS = {}  # cuobjdump -sass of each library, dumped once
 
 
+def instrument(s):
+    """Counters of the solver's next solves: the device loop's iterations
+    and preconditioner applications, and the host's factored solves (the
+    host loop's M⁻¹, one a call whatever the RHS width)."""
+    rec = {"dev_iters": 0, "dev_applies": 0, "host_solves": 0}
+    dev_fn, raw = s._refine_fn, s._raw_solve_ext
+    if dev_fn is not None:
+        def counted_dev(*args):
+            x, it = dev_fn(*args)
+            rec["dev_iters"] += it
+            rec["dev_applies"] += dev_fn.applies
+            return x, it
+
+        s._refine_fn = counted_dev
+
+    def counted_host(v):
+        rec["host_solves"] += 1
+        return raw(v)
+
+    s._raw_solve_ext = counted_host
+    return rec
+
+
+def front_door_solver(label, A, cfg, dev, b, need, forbid=()):
+    """One solver of phase 16: analyze, factorize twice, solve; its counts
+    read (``need`` launched, ``forbid`` and the twins not); then a second
+    solve, timed and counted alone: residual <= 1e-10, K2 at most twice a
+    preconditioner application.  Returns (solver, x, figures)."""
+    import torch
+
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    s, t = analyzed(A, cfg, dev)
+    fact = []
+    for _ in range(2):
+        s.factorize()
+        fact.append(s.report.fact_time * 1e3)
+    s.solve(b)
+    read_counts(f"{label}: analysis, factorize, first solve", need, forbid)
+    rec = instrument(s)
+    reset_counts()
+    x = s.solve(b)
+    launches = read_counts(f"{label}: second solve",
+                           [k for k in need if k == "K2"], forbid)
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+    M = A.to_scipy()
+    res = float(np.linalg.norm(b - M @ x) / np.linalg.norm(b))
+    applies = rec["dev_applies"] + rec["host_solves"]
+    num = {
+        "analysis_s": sum(t.values()), "fact_ms": fact,
+        "solve_ms": s.report.solve_time * 1e3,
+        "refine_ms": s.report.refine_time * 1e3,
+        "iters": s.report.refine_iters,
+        "host_steps": s.report.refine_iters - rec["dev_iters"],
+        "applies": applies, "K2": launches["K2"],
+        "residual": s.report.residual, "residual_original_order": res,
+        "peak_gib": peak, "dinv": s.factors.dinv is not None,
+    }
+    log(f"front door {label}: " + json.dumps(num))
+    if not max(res, s.report.residual) <= TOL_RES:
+        raise AssertionError(f"{label}: residual {res:.3e} above {TOL_RES}")
+    if launches["K2"] > 2 * applies:
+        raise AssertionError(f"{label}: {launches['K2']} K2 launches for "
+                             f"{applies} preconditioner applications")
+    return s, x, num
+
+
+def front_door_path(nx, lu_nx, dev, main_iters):
+    """Phase 16: the front door and the refinement methods at full width
+    (see the module docstring); each run's figures go to the log."""
+    import gc
+    import inspect
+    import shutil
+    import tempfile
+
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+    from pastix_tpu_torch import cli
+    from pastix_tpu_torch.config import (
+        Factorization, IOStrategy, PastixConfig, RefinementMethod, Task,
+    )
+    from pastix_tpu_torch.distributed import CSCDPart, dspsolve
+    from pastix_tpu_torch.generators import convection_diffusion_3d, poisson_3d
+    from pastix_tpu_torch.murge import MurgeSolver
+    from pastix_tpu_torch.pastix import pastix
+    from pastix_tpu_torch.sparse import SparseMatrix
+
+    io_root = tempfile.mkdtemp(prefix="pastix_front_door_")
+    saved = set()
+
+    def cfg(kind, **kw):
+        # the first solver of a matrix saves its order, symbol and layout;
+        # every later one loads them (one host analysis a matrix)
+        io = IOStrategy.LOAD if kind in saved else IOStrategy.SAVE
+        saved.add(kind)
+        return PastixConfig(
+            tile_size=128, update_dtype="bfloat16",
+            factorization=Factorization[kind], io_strategy=io,
+            io_dir=os.path.join(io_root, kind), **kw)
+
+    try:
+        os.makedirs(os.path.join(io_root, "LLT"))
+        os.makedirs(os.path.join(io_root, "LU"))
+        CG = RefinementMethod.CG
+        A = poisson_3d(nx)
+        M = A.to_scipy()
+        b = M @ np.ones(A.n)
+        gc.collect()
+        m0 = torch.cuda.memory_allocated(dev)
+        need = ("K1", "K2")
+        base, _, fast = front_door_solver(
+            f"LLT CG poisson_3d({nx})", A, cfg("LLT", refinement=CG), dev, b,
+            need)
+        for name, kw, forbid in (
+                ("GMRES", dict(refinement=RefinementMethod.GMRES), ()),
+                ("BICGSTAB", dict(refinement=RefinementMethod.BICGSTAB), ()),
+                ("CG device_refine=False", dict(refinement=CG,
+                                                device_refine=False), ()),
+                ("CG fast_solve=False", dict(refinement=CG, fast_solve=False),
+                 ("K2",))):
+            s, _, num = front_door_solver(
+                f"LLT {name}", A, cfg("LLT", **kw), dev, b,
+                [k for k in need if k not in forbid], forbid)
+            if (s.factors.dinv is None) != bool(forbid):
+                raise AssertionError(f"LLT {name}: dinv is "
+                                     f"{'present' if forbid else 'missing'}")
+            del s
+            gc.collect()
+        # num: the last run's, fast_solve=False
+        log(f"  peak device memory above the run's start: fast_solve "
+            f"{fast['peak_gib']:.3f} GiB, fast_solve=False "
+            f"{num['peak_gib']:.3f} GiB")
+
+        # new values on the cached analysis, against a fresh solver
+        v = np.array(A.values, dtype=np.float64)
+        v[A.rowind == np.repeat(np.arange(A.n), np.diff(A.colptr))] *= 1.1
+        A2 = SparseMatrix(A.n, A.colptr, A.rowind, v, A.symmetric_storage)
+        reset_counts()
+        t0 = time.perf_counter()
+        base.factorize(v)
+        call_ms = (time.perf_counter() - t0) * 1e3
+        x = base.solve(b)
+        read_counts("LLT CG factorize(values)", need)
+        fresh, xf, _ = front_door_solver(
+            "LLT CG fresh solver on the new values", A2, cfg("LLT",
+                                                             refinement=CG),
+            dev, b, need)
+        pool_d = float((base.factors.pool - fresh.factors.pool).abs().max())
+        rel = float(np.linalg.norm(x - xf) / np.linalg.norm(xf))
+        num = {
+            "fact_ms_first": fast["fact_ms"][0],
+            "fact_ms_second": fast["fact_ms"][1],
+            "refactor_ms": base.report.fact_time * 1e3,
+            "refactor_call_ms": call_ms, "iters": base.report.refine_iters,
+            "fresh_iters": fresh.report.refine_iters,
+            "x_rel_diff": rel, "max_pool_diff": pool_d,
+            "residual": base.report.residual,
+        }
+        log("front door factorize(values): " + json.dumps(num))
+        if (base.report.refine_iters != fresh.report.refine_iters
+                or not rel <= TOL_REFAC
+                or not base.report.residual <= TOL_RES):
+            raise AssertionError("factorize(values) disagrees with a fresh "
+                                 "solver on the new values")
+        del fresh
+        gc.collect()
+
+        # the factored solve under scipy's CG
+        M2 = A2.to_scipy()
+        op = base.as_preconditioner()
+        steps = [0]
+        tol = ("rtol" if "rtol" in inspect.signature(spla.cg).parameters
+               else "tol")
+        t0 = time.perf_counter()
+        xs, info = spla.cg(M2, b, M=op, atol=0.0, maxiter=main_iters + 2,
+                           callback=lambda _: steps.__setitem__(
+                               0, steps[0] + 1), **{tol: TOL_RES})
+        cg_ms = (time.perf_counter() - t0) * 1e3
+        res = float(np.linalg.norm(b - M2 @ xs) / np.linalg.norm(b))
+        num = {
+            "scipy_cg_steps": steps[0], "max_steps": main_iters + 2,
+            "info": int(info), "residual": res, "ms": cg_ms,
+            "dtype": str(op.dtype)}
+        log("front door as_preconditioner under scipy cg: " + json.dumps(num))
+        if info != 0 or not res <= TOL_RES:
+            raise AssertionError("scipy cg with as_preconditioner did not "
+                                 f"reach {TOL_RES} in {main_iters + 2} steps")
+
+        # the array API and its phase window
+        Mc = M.tocsc()
+        reset_counts()
+        x, rep = pastix(A.n, Mc.indptr, Mc.indices, Mc.data, b,
+                        cfg("LLT", end_task=Task.ANALYSE), device=dev)
+        if x is not None or rep.fact_time != 0 or rep.n_tiles == 0:
+            raise AssertionError("pastix() ORDERING..ANALYSE factored or "
+                                 "solved")
+        x, rep = pastix(A.n, Mc.indptr, Mc.indices, Mc.data, b,
+                        cfg("LLT", end_task=Task.CLEAN), device=dev)
+        read_counts("pastix() ORDERING..CLEAN", need)
+        res = float(np.linalg.norm(b - M @ x) / np.linalg.norm(b))
+        num = {"residual": rep.residual, "residual_original_order": res,
+               "iters": rep.refine_iters}
+        log("front door pastix(): " + json.dumps(num))
+        if not max(res, rep.residual) <= TOL_RES:
+            raise AssertionError("pastix() did not reach the residual")
+
+        # clean() gives the card's memory back
+        del op
+        gc.collect()
+        held = torch.cuda.memory_allocated(dev)
+        base.clean()
+        left = torch.cuda.memory_allocated(dev)
+        num = {"before_solver_mib": m0 / 2 ** 20, "held_mib": held / 2 ** 20,
+               "after_clean_mib": left / 2 ** 20}
+        log("front door clean(): " + json.dumps(num))
+        if left > m0 + CLEAN_SLACK:
+            raise AssertionError(f"clean() left {(left - m0) / 2 ** 20:.1f} "
+                                 "MiB allocated")
+        del base
+        gc.collect()
+
+        # LU with GMRES and BiCGStab
+        C = convection_diffusion_3d(lu_nx)
+        bc = C.to_scipy() @ np.ones(C.n)
+        for name in ("GMRES", "BICGSTAB"):
+            s, _, _ = front_door_solver(
+                f"LU {name} convection_diffusion_3d({lu_nx})", C,
+                cfg("LU", refinement=RefinementMethod[name]), dev, bc,
+                ("K1", "K2", "K4"))
+            del s
+            gc.collect()
+
+        # the host front ends, once each at poisson_3d(24)
+        A24 = poisson_3d(24)
+        M24 = A24.to_scipy()
+        C24 = sp.coo_matrix(M24)
+        b24 = M24 @ np.ones(A24.n)
+        res = lambda M_, x_: float(np.linalg.norm(b24 - M_ @ x_)
+                                   / np.linalg.norm(b24))
+        small = PastixConfig(tile_size=128, update_dtype="bfloat16")
+        reset_counts()
+        m = MurgeSolver(A24.n, small, device=dev)
+        m.graph_begin()
+        m.graph_edge(C24.row, C24.col)
+        m.graph_end()
+        m.assembly_begin()
+        m.assembly_set_value(C24.row, C24.col, C24.data)
+        m.assembly_end()
+        r1 = res(M24, m.solve(b24))
+        layout = m._solver.layout
+        m.assembly_begin(MurgeSolver.OVERWRITE)
+        m.assembly_set_value(C24.row, C24.col, 2.0 * C24.data)
+        m.assembly_end()
+        r2 = res(2.0 * M24, m.solve(b24))
+        reused = m._solver.layout is layout
+        parts = []
+        for ch in np.array_split(np.arange(C24.nnz), 4):
+            rows, cols = C24.row[ch], C24.col[ch]
+            gl = np.unique(np.concatenate([rows, cols]))
+            parts.append(CSCDPart(rows=np.searchsorted(gl, rows),
+                                  cols=np.searchsorted(gl, cols),
+                                  vals=C24.data[ch], loc2glob=gl))
+        owner = np.full(A24.n, -1)
+        for i, p in enumerate(parts):
+            owner[p.loc2glob[owner[p.loc2glob] < 0]] = i
+        xs = dspsolve(A24.n, parts,
+                      [np.where(owner[p.loc2glob] == i, b24[p.loc2glob], 0.0)
+                       for i, p in enumerate(parts)], small, device=dev)
+        xd = np.zeros(A24.n)
+        for p, xp in zip(parts, xs):
+            xd[p.loc2glob] = xp
+        r3 = res(M24, xd)
+        rc = cli.main(["-lap3", "24", "--refine", "gmres", "--steps"])
+        read_counts("front ends poisson_3d(24)", need)
+        num = {
+            "murge_residual": r1, "murge_new_values_residual": r2,
+            "murge_analysis_reused": reused, "dspsolve_residual": r3,
+            "cli_rc": rc}
+        log("front door front ends: " + json.dumps(num))
+        if (not max(r1, r2, r3) <= TOL_RES or not reused or rc != 0):
+            raise AssertionError("a front end failed at poisson_3d(24)")
+    finally:
+        shutil.rmtree(io_root, ignore_errors=True)
+
+
 def sass_count(build, kernel, ops, also=None):
     """How many of each SASS opcode of ``ops`` the library's ``kernel``
     functions hold (``cuobjdump -sass``, run once a library; ``also``:
@@ -2269,6 +2583,10 @@ def main() -> int:
     if min(v[3] for v in cache.values()) == 0 or min(
             r[-1] for r in probes) == 0:
         raise AssertionError("phase 14 or 15 did not launch every kernel")
+
+    # 16. the front door and the refinement methods
+    front_door_path(args.nx, args.lu_nx, dev, main_num["iters"])
+    elapsed("phase 16")
 
     # no single PyTorch call computes a gather-GEMM-scatter over a pair
     # list or a block-sparse triangular sweep: library_ms is null but for

@@ -2,12 +2,15 @@
 real LLᵗ, LDLᵗ and LU).
 
 :class:`Pastix` keeps the reference's step-by-step phases
-(``order → symbfact → analyze → factorize → solve``), its Schur-complement
-calls (``set_schur_unknowns``, ``get_schur``, ``solve_with_schur``) and
-:func:`spsolve` its one-call form.  The host phases (ordering, symbolic
-factorization, the supernode-aligned or Schur extension) are copies of the
-reference's methods, with the tracing branches left out; the numeric
-phases run on one device through the port's kernels.  What is not ported
+(``order → symbfact → analyze → factorize → solve``), new values on the
+cached analysis (``factorize(values)``), ``as_preconditioner``, ``clean``,
+its Schur-complement calls (``set_schur_unknowns``, ``get_schur``,
+``solve_with_schur``); :func:`spsolve` is its one-call form and
+:func:`pastix` the reference's array API with its phase window.  The
+host phases (ordering, symbolic factorization, the supernode-aligned or
+Schur extension) are copies of the reference's methods, with the tracing
+branches left out; the numeric phases run on one device through the
+port's kernels.  What is not ported
 raises ``NotImplementedError`` naming its ``ROADMAP.md`` slice; there are
 no silent fallbacks, and an error on the device propagates.
 """
@@ -33,10 +36,11 @@ from pastix_tpu_torch.config import (
     RefinementMethod,
     SolveReport,
     Symmetry,
+    Task,
     Verbosity,
 )
 from pastix_tpu_torch.order import Order, compute_ordering
-from pastix_tpu_torch.sparse import SparseMatrix
+from pastix_tpu_torch.sparse import SparseMatrix, check_matrix
 from pastix_tpu_torch.symbolic import compute_symbolic
 from pastix_tpu_torch._device import pin_precision, resolve_device, synchronize
 from pastix_tpu_torch.krylov import build_device_refine_fn, build_ell
@@ -47,10 +51,12 @@ from pastix_tpu_torch.numeric.factorize import (
     build_factorize_fn,
     factorize as numeric_factorize,
 )
-from pastix_tpu_torch.refine import refine_block
+from pastix_tpu_torch.refine import refine as refine_fn, refine_block
 from pastix_tpu_torch.solve import (
     blocks_to_rhs,
     build_fwd_bwd_fns,
+    build_level_fwd_bwd_fns,
+    build_solve_fn,
     build_solve_fn_sweep,
     rhs_to_blocks,
     run_host,
@@ -99,24 +105,12 @@ def _check_config(cfg: PastixConfig) -> None:
         raise _not_ported("out-of-core", "slice 4")
     if cfg.mesh_shape is not None:
         raise _not_ported("mesh_shape (multi-device)", "slice 5")
-    if cfg.refinement not in (RefinementMethod.SIMPLE, RefinementMethod.NONE):
-        raise _not_ported(f"{cfg.refinement.name} refinement", "slice 3")
     # packed_update=None (auto) is off: the port has no packed E2 path
     # (the reference's auto turns it on for every backend but the TPU)
     if cfg.packed_update:
         raise _not_ported("packed_update=True (the packed E2 path)", "A7")
     if cfg.trace:
         raise _not_ported("trace=True (phase spans, dump_trace)", "A10")
-    # one solve path (the inverse diagonal tiles, K2) and one refinement
-    # loop (on the device, fp64 residual)
-    if not cfg.fast_solve:
-        raise _not_ported("fast_solve=False (per-level triangular solves)",
-                          "A2")
-    if not cfg.device_refine:
-        raise _not_ported("device_refine=False (the host refinement loop)",
-                          "A2")
-    if cfg.residual_dtype != "float64":
-        raise _not_ported(f"residual_dtype={cfg.residual_dtype!r}", "A2")
 
 
 class Pastix:
@@ -140,6 +134,8 @@ class Pastix:
         self._dense_tail = None
         self._schur_unknowns: Optional[np.ndarray] = None
         self._schur_first_bcol: Optional[int] = None
+        self._refine_fn = None  # the device refinement loop, if it runs
+        self._ell = None  # its fp64 ELL matrix of A_perm
         if A is not None:
             self.set_matrix(A)
 
@@ -353,8 +349,6 @@ class Pastix:
         cfg = self.config
         n = self.A.n
         T = cfg.resolve_tile_size(n)
-        A_full = self.A.to_scipy().tocoo()
-        perm = self.order_.permtab
         if self._schur_unknowns is not None:
             # the Schur dofs (ordered last) start at a tile boundary; the
             # others keep the supernode alignment, which the reference
@@ -379,6 +373,19 @@ class Pastix:
         self._ext_map = ext
         self._ext_n = n_ext
         self._tile_size = T
+        Ap = self._A_perm = self._permuted_extended()
+        pat = (abs(Ap) + abs(Ap).T).astype(bool).tocsc()
+        pat = (pat + sp.eye(n_ext, dtype=bool, format="csc")).astype(bool).tocsc()
+        self._pat_perm_ext = pat
+
+    def _permuted_extended(self) -> sp.csc_matrix:
+        """A's values permuted and embedded into the cached extension
+        (fp64 CSC, sorted indices), identity on the padding rows: the
+        analysis's matrix and, on new values, the reference's
+        ``_build_extended_matrix_values_only``."""
+        A_full = self.A.to_scipy().tocoo()
+        perm = self.order_.permtab
+        ext, n_ext = self._ext_map, self._ext_n
         ri = ext[perm[A_full.row]]
         ci = ext[perm[A_full.col]]
         pad_rows = np.setdiff1d(np.arange(n_ext), ext)  # the identity gap
@@ -389,10 +396,7 @@ class Pastix:
         Ap = sp.coo_matrix((data, (ri, ci)), shape=(n_ext, n_ext)).tocsc()
         Ap.sum_duplicates()
         Ap.sort_indices()
-        self._A_perm = Ap
-        pat = (abs(Ap) + abs(Ap).T).astype(bool).tocsc()
-        pat = (pat + sp.eye(n_ext, dtype=bool, format="csc")).astype(bool).tocsc()
-        self._pat_perm_ext = pat
+        return Ap
 
     # ------------------------------------------------------------------
     # phase 3: analysis
@@ -406,9 +410,17 @@ class Pastix:
     def analyze(self) -> SolverLayout:
         """Tile layout, dense-tail plan, and every device table: coefinit
         indices, the left-looking K1 plans, the K3 plans of the Schur
-        residue, the K2 sweep plan and the ELL matrix of the refinement.
+        residue, the solve's tables and the refinement's ELL matrix.
         Schur mode leaves the Schur columns unfactored; the dense tail is
-        LLᵗ only and off in Schur mode (the reference's rules)."""
+        LLᵗ only and off in Schur mode (the reference's rules).
+
+        The solve and the refinement are chosen here, by the user's flags
+        (reference ``pastix.py:855-990``, without its TPU gates):
+        ``fast_solve`` takes the K2 sweeps over the inverse diagonal
+        tiles, else the per-level solve (``solve.build_solve_fn``), which
+        needs no inverses; with ``device_refine`` and ``fast_solve`` and a
+        refinement method, the device loop of ``krylov`` refines, else the
+        host loop of ``refine`` with the device solve as M⁻¹."""
         cfg = self.config
         if self.symbol_ is None:
             self.symbfact()
@@ -460,16 +472,26 @@ class Pastix:
         self._fact_fn = build_factorize_fn(
             lay, dev, kind, update_dtype=upd, dense_tail=self._dense_tail
         )
-        self._dinv_fn = build_diag_inverse_fn(lay, dev, kind)
-        self._fwd_fn, self._bwd_fn = build_fwd_bwd_fns(lay, dev, kind)
-        self._solve_fn = build_solve_fn_sweep(lay, dev, kind,
-                                              self._fwd_fn.plan)
-        self._refine_fn = build_device_refine_fn(lay, self._solve_fn)
-        cols, vals = build_ell(
-            sp.coo_matrix(self._A_perm), lay.nbc * T, np.float64
-        )
-        self._ell = (torch.as_tensor(cols.astype(np.int64), device=dev),
-                     torch.as_tensor(vals, device=dev))
+        if cfg.fast_solve:
+            self._dinv_fn = build_diag_inverse_fn(lay, dev, kind)
+            self._fwd_fn, self._bwd_fn = build_fwd_bwd_fns(lay, dev, kind)
+            self._solve_fn = build_solve_fn_sweep(lay, dev, kind,
+                                                  self._fwd_fn.plan)
+        else:
+            # the per-level solve: no inverse diagonal tiles (nbc T² fp32
+            # of device memory saved, twice on LU), no K2
+            self._dinv_fn = None
+            self._fwd_fn, self._bwd_fn = build_level_fwd_bwd_fns(lay, dev,
+                                                                 kind)
+            self._solve_fn = build_solve_fn(lay, dev, kind)
+        self._refine_fn = self._ell = None
+        if (cfg.device_refine and cfg.fast_solve
+                and cfg.refinement != RefinementMethod.NONE):
+            self._refine_fn = build_device_refine_fn(
+                lay, self._solve_fn, method=cfg.refinement,
+                restart=cfg.gmres_restart,
+            )
+            self._ell = self._device_ell()
         self.report.analyze_time = time.perf_counter() - t0
         self.report.tile_size = T
         self.report.n_tiles = lay.npool
@@ -501,33 +523,70 @@ class Pastix:
             )
         return lay
 
+    def _device_ell(self):
+        """The device loop's fp64 ELL matrix of the current ``A_perm``."""
+        cols, vals = build_ell(
+            sp.coo_matrix(self._A_perm), self.layout.nbc * self.layout.T,
+            np.float64,
+        )
+        return (torch.as_tensor(cols.astype(np.int64), device=self.device),
+                torch.as_tensor(vals, device=self.device))
+
+    def _set_values(self, values) -> None:
+        """New values on the cached analysis (reference ``factorize``
+        ``:1023-1041`` and ``_build_extended_matrix_values_only``): ``A``,
+        ``A_perm`` and the device loop's ELL matrix are rebuilt on the
+        cached order and extension.  The coefinit's scatter indices select
+        entries by their position in ``A_perm``, so its CSC pattern must
+        be the analysis's."""
+        values = np.asarray(values)
+        if values.shape[0] != self.A.nnz:
+            raise ValueError("values length must match nnz of the pattern")
+        if np.iscomplexobj(values):
+            raise _not_ported("complex matrices", "slice 3")
+        old = self._A_perm
+        self.A = SparseMatrix(
+            self.A.n, self.A.colptr, self.A.rowind, values,
+            self.A.symmetric_storage,
+        )
+        Ap = self._permuted_extended()
+        if not (np.array_equal(Ap.indptr, old.indptr)
+                and np.array_equal(Ap.indices, old.indices)):
+            raise ValueError(
+                "the new values change the pattern of the permuted matrix "
+                "(an explicit zero dropped?): run a new analysis"
+            )
+        self._A_perm = Ap
+        if self._refine_fn is not None:
+            self._ell = self._device_ell()
+
     # ------------------------------------------------------------------
     # phase 4: numeric factorization
     # ------------------------------------------------------------------
 
     @_pinned
     def factorize(self, values: Optional[np.ndarray] = None) -> Factors:
-        """Coefinit, the factorization of the configured kind and the
-        inverse diagonal tiles, on the device; returns when the device has
-        finished.  LDLᵗ and LU clamp pivots below
+        """Coefinit, the factorization of the configured kind and, with
+        ``fast_solve``, the inverse diagonal tiles, on the device; returns
+        when the device has finished.  LDLᵗ and LU clamp pivots below
         ``static_pivoting_threshold · max|A|`` and report their number in
-        ``report.static_pivots``.  ``values`` (the reference's new values
-        on the cached analysis) is not ported and raises."""
-        if values is not None:
-            raise _not_ported("factorize(values) (new values on the cached "
-                              "analysis)", "A2")
+        ``report.static_pivots``.  ``values`` (same pattern, new numbers:
+        ``A.values`` order) refactors on the cached analysis, with no host
+        analysis again."""
         cfg = self.config
         if self.layout is None:
             self.analyze()
+        if values is not None:
+            self._set_values(values)
         t0 = time.perf_counter()
         f = self.factors = numeric_factorize(
             self.layout, self._A_perm, self._coef_fn, self._fact_fn,
             self.device, pivot_threshold=cfg.static_pivoting_threshold,
         )
-        if f.kind == Factorization.LU:
-            f.dinv, f.dinv_u = self._dinv_fn(f.pool)
-        else:
-            f.dinv = self._dinv_fn(f.pool)
+        if self._dinv_fn is not None:
+            inv = self._dinv_fn(f.pool)
+            lu = f.kind == Factorization.LU
+            f.dinv, f.dinv_u = inv if lu else (inv, None)
         synchronize(self.device)
         self.report.fact_time = time.perf_counter() - t0
         self.report.static_pivots = self.factors.n_static_pivots
@@ -568,11 +627,39 @@ class Pastix:
         out[self.order_.peritab] = xp
         return out[:, 0] if one_d else out
 
+    def _raw_solve_ext(self, b_ext: np.ndarray) -> np.ndarray:
+        """The factored solve, no refinement, of a host vector or block in
+        the extended permuted order, through the device (fp32 there,
+        fp64 back): the host loop's M⁻¹."""
+        return run_host(self.factors, b_ext, self._solve_fn)
+
+    def _device_solve_refined(self, b_ext: np.ndarray):
+        """The device loop (``krylov.build_device_refine_fn``) on a host
+        RHS in the extended permuted order: (x_ext, device iterations)."""
+        cfg, lay = self.config, self.layout
+        bb = torch.as_tensor(
+            rhs_to_blocks(lay, b_ext, dtype=np.float64), device=self.device
+        ).reshape(lay.nbc * lay.T, -1)
+        x, iters = self._refine_fn(
+            self.factors.solve_args(), *self._ell, bb,
+            float(cfg.refinement_eps), min(cfg.refinement_itermax, 60),
+        )
+        xb = x.reshape(lay.nbc, lay.T, -1).cpu().numpy()
+        x_ext = blocks_to_rhs(lay, xb)
+        return (x_ext[:, 0] if np.asarray(b_ext).ndim == 1 else x_ext), iters
+
     @_pinned
     def solve(self, b: np.ndarray, refine: Optional[bool] = None) -> np.ndarray:
-        """Solve A x = b (original ordering).  With refinement (the
-        default) the device Richardson loop runs to ``refinement_eps``;
-        the reported residual is the host fp64 ``||b - Ax|| / ||b||``."""
+        """Solve A x = b (original ordering); refinement per config.
+
+        The device loop (``device_refine`` and ``fast_solve``) refines to
+        ``refinement_eps``; if the host fp64 residual is still above it,
+        the host loop finishes at the configured method, up to
+        ``refinement_itermax`` more steps, as the reference's ``solve``
+        does (``pastix.py:1711-1771``).  Otherwise the host loop refines
+        the factored solve's result.  ``report.refine_iters`` counts the
+        device and the host steps; ``report.residual`` is the host fp64
+        ``||b - Ax|| / ||b||`` in the permuted order."""
         cfg = self.config
         if np.iscomplexobj(np.asarray(b)):
             raise _not_ported("complex right-hand sides", "slice 3")
@@ -586,38 +673,71 @@ class Pastix:
         do_refine = cfg.refinement != RefinementMethod.NONE if refine is None else refine
         t0 = time.perf_counter()
         b_ext = self._perm_rhs(b)
-        lay, f = self.layout, self.factors
-        nflat = lay.nbc * lay.T
-        bb = torch.as_tensor(
-            rhs_to_blocks(lay, b_ext, dtype=np.float64), device=self.device
-        ).reshape(nflat, -1)
-        if do_refine:
-            x, iters = self._refine_fn(
-                f.solve_args(), *self._ell, bb, float(cfg.refinement_eps),
-                min(cfg.refinement_itermax, 60),
-            )
+        Ap = self._A_perm
+        dev_iters = 0
+        self.report.refine_time = 0.0
+        if do_refine and self._refine_fn is not None:
+            x_ext, dev_iters = self._device_solve_refined(b_ext)
+            r = b_ext - Ap @ x_ext
+            res = float(np.linalg.norm(r) / max(np.linalg.norm(b_ext), 1e-300))
+            self.report.refine_iters, self.report.residual = dev_iters, res
+            host_loop = not res <= cfg.refinement_eps  # the host finish
         else:
-            x, iters = self._solve_fn(
-                *f.solve_args(), bb.view(lay.nbc, lay.T, -1)
-            ), 0
-        xb = x.reshape(lay.nbc, lay.T, -1).to(torch.float64).cpu().numpy()
-        x_ext = blocks_to_rhs(lay, xb)
-        if np.asarray(b_ext).ndim == 1:
-            x_ext = x_ext[:, 0]
-        r = b_ext - self._A_perm @ x_ext
-        self.report.residual = float(
-            np.linalg.norm(r) / max(np.linalg.norm(b_ext), 1e-300)
-        )
-        self.report.refine_iters = iters
+            x_ext = self._raw_solve_ext(b_ext)
+            host_loop = do_refine
         self.report.solve_time = time.perf_counter() - t0
-        self.report.refine_time = 0.0  # the device loop is in solve_time
+        if host_loop:
+            t0 = time.perf_counter()
+            rdt = np.result_type(
+                np.dtype(cfg.residual_dtype), Ap.dtype, b_ext.dtype
+            ).type
+            res = refine_fn(
+                lambda v: Ap @ v, self._raw_solve_ext, b_ext, x_ext,
+                method=cfg.refinement, eps=cfg.refinement_eps,
+                itermax=cfg.refinement_itermax,
+                gmres_restart=cfg.gmres_restart, dtype=rdt,
+            )
+            x_ext = res.x
+            self.report.refine_iters = dev_iters + res.iterations
+            self.report.residual = res.residual
+            self.report.refine_time = time.perf_counter() - t0
+        elif not do_refine:
+            r = b_ext - Ap @ x_ext
+            self.report.residual = float(
+                np.linalg.norm(r) / max(np.linalg.norm(b_ext), 1e-300)
+            )
+            self.report.refine_iters = 0
         if cfg.verbosity >= Verbosity.NO:
             print(
                 f"[pastix-tpu-torch] solve: {self.report.solve_time:.3f}s  "
-                f"refine: {iters} device iters -> residual "
-                f"{self.report.residual:.3e}"
+                f"refine: {dev_iters} device + "
+                f"{self.report.refine_iters - dev_iters} host iters -> "
+                f"residual {self.report.residual:.3e}"
             )
         return self._unperm_sol(x_ext)
+
+    def as_preconditioner(self):
+        """scipy ``LinearOperator`` (n, n) of dtype ``compute_dtype``
+        applying the factored solve M⁻¹ with no refinement, in the
+        original order: a direct-solve preconditioner for the caller's
+        own Krylov loop (``scipy.sparse.linalg.cg``/``gmres`` ``M=``).
+        Each application pins true fp32 itself: it runs after
+        ``factorize`` has returned."""
+        from scipy.sparse.linalg import LinearOperator
+
+        if self.factors is None:
+            self.factorize()
+        n = self.A.n
+        dt = np.dtype(self.config.compute_dtype)
+
+        def mv(r):
+            rr = np.asarray(r)
+            one_d = rr.ndim == 1
+            with pin_precision():
+                x = self._unperm_sol(self._raw_solve_ext(self._perm_rhs(rr)))
+            return x if not one_d or x.ndim == 1 else x[:, 0]
+
+        return LinearOperator((n, n), matvec=mv, matmat=mv, dtype=dt)
 
     # ------------------------------------------------------------------
     # Schur complement
@@ -708,14 +828,29 @@ class Pastix:
         self.report.solve_time = time.perf_counter() - t0
         return self._unperm_sol(x_ext)
 
-    # the reference's members that are not ported yet: each raises,
-    # naming its ROADMAP item
-
-    def as_preconditioner(self):
-        raise _not_ported("as_preconditioner", "A2")
+    # ------------------------------------------------------------------
+    # cleanup (pastix_task_clean)
+    # ------------------------------------------------------------------
 
     def clean(self):
-        raise _not_ported("clean", "A2")
+        """The reference's resets, and every device tensor the solver
+        holds dropped with them (the factors, the ELL matrix, the
+        coefinit, factorization, inverse, solve and refinement tables),
+        so the card's allocated bytes return to their level before the
+        solver.  A later phase call reruns the pipeline from ``order``."""
+        self.factors = None
+        self.layout = None
+        self.symbol_ = None
+        self.order_ = None
+        self._A_perm = None
+        self._ell = None
+        self._coef_fn = self._fact_fn = self._dinv_fn = None
+        self._fwd_fn = self._bwd_fn = self._solve_fn = None
+        self._refine_fn = None
+        self._dense_tail = None
+
+    # the reference's member that is not ported yet: it raises, naming
+    # its ROADMAP item
 
     def dump_trace(self, path: str) -> None:
         raise _not_ported("dump_trace (phase spans)", "A10")
@@ -731,7 +866,32 @@ def spsolve(A, b, config: Optional[PastixConfig] = None, device=None,
 
 def pastix(n: int, colptr: np.ndarray, rowind: np.ndarray, values: np.ndarray,
            b: np.ndarray, config: Optional[PastixConfig] = None,
-           base: int = 0):
-    """The reference's array API (``pastix_tpu.pastix.pastix``), not
-    ported yet: raises."""
-    raise _not_ported("the array API pastix()", "A2")
+           base: int = 0, device=None):
+    """Array-style API mirroring the reference's pastix() signature
+    (src/sopalin/src/pastix.c).  Returns (x, report); ``x`` is None unless
+    the phase window (``start_task`` .. ``end_task``) holds SOLVE.
+    ``device`` as :class:`Pastix`'s."""
+    config = config or PastixConfig()
+    sym = config.factorization != Factorization.LU
+    A = check_matrix(
+        n, colptr, rowind, values, base=base,
+        symmetric_storage=sym,
+        symmetrize_pattern=not sym,
+    )
+    solver = Pastix(A, config, device=device)
+    # honor the phase window (IPARM_START_TASK .. IPARM_END_TASK)
+    st, et = Task(config.start_task), Task(config.end_task)
+    x = None
+    if st <= Task.ORDERING <= et:
+        solver.order()
+    if st <= Task.SYMBFACT <= et:
+        solver.symbfact()
+    if st <= Task.ANALYSE <= et:
+        solver.analyze()
+    if st <= Task.NUMFACT <= et:
+        solver.factorize()
+    if st <= Task.SOLVE <= et:
+        x = solver.solve(b, refine=et >= Task.REFINE)
+    if et >= Task.CLEAN:
+        solver.clean()
+    return x, solver.report

@@ -11,7 +11,11 @@ only; K1 and K2 also repeat bit for bit, and K3-K6 and K9-K12 wherever a
 test runs them twice), K4 <= 1e-5 max|twin| with equal clamp counts, K7 and K8 <= 1e-5
 max|twin| (a right-looking loop against a left-looking one), K13 <=
 1e-5 max|twin| (exact copies, summed in another order); the end-to-end
-solves to a residual of 1e-10.
+solves to a residual of 1e-10; the device refinement loops on the card
+against the same loops on the CPU (iterations within 1, solutions within
+1e-9), new values through ``factorize(values)`` against a fresh solver
+(equal pools and iterations), and the per-level solve of
+``fast_solve=False`` against K2's solve on the same factors (1e-5).
 """
 
 import dataclasses
@@ -1001,3 +1005,90 @@ def test_k13_matches_twin(cuda, rows, S, D, ctas, piece):
     ref = DP.probe_ref(view, idx, S, 3)
     assert got.shape == (2, D, 128)
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+# the front door and the refinement (slice 11)
+
+
+@pytest.mark.parametrize("kind,method", [
+    ("LLT", "CG"), ("LLT", "GMRES"), ("LLT", "BICGSTAB"),
+    ("LU", "GMRES"), ("LU", "BICGSTAB"),
+])
+def test_device_refinement_on_cuda_matches_cpu(cuda, kind, method):
+    """The device loops with K2 as M⁻¹ against the same loops on the CPU
+    (the twin): iterations within 1, solutions within 1e-9, K2 launched
+    and no twin run, the whole refinement on the card (no host step)."""
+    from pastix_tpu_torch.config import RefinementMethod
+
+    gen = poisson_3d if kind == "LLT" else convection_diffusion_3d
+    A = gen(12)
+    b = A.to_scipy() @ np.random.default_rng(6).standard_normal(A.n)
+    cfg = PastixConfig(tile_size=32, update_dtype="bfloat16",
+                       factorization=Factorization[kind],
+                       refinement=RefinementMethod[method],
+                       refinement_eps=1e-12)
+    k2, t2 = SW.run_sweep.launches, SW.run_sweep.twin_launches
+    gpu = Pastix(A, cfg, device=cuda)
+    x = gpu.solve(b)
+    dev_x, dev_it = gpu._device_solve_refined(gpu._perm_rhs(b))
+    assert SW.run_sweep.launches > k2 and SW.run_sweep.twin_launches == t2
+    cpu = Pastix(A, cfg, device="cpu")
+    xc = cpu.solve(b)
+    assert gpu.report.residual <= 1e-10 and cpu.report.residual <= 1e-10
+    assert dev_it == gpu.report.refine_iters  # no host step
+    assert abs(gpu.report.refine_iters - cpu.report.refine_iters) <= 1
+    assert np.linalg.norm(x - xc) <= 1e-9 * np.linalg.norm(xc)
+
+
+@pytest.mark.parametrize("kind", ["LLT", "LU"])
+def test_factorize_values_on_cuda_matches_fresh_solver(cuda, kind):
+    """New values (the diagonal raised by 10 %) on the cached analysis
+    against a fresh solver on the new matrix: equal pools, equal
+    iterations, the device loop's ELL matrix rebuilt."""
+    gen = poisson_3d if kind == "LLT" else convection_diffusion_3d
+    A = gen(12)
+    b = A.to_scipy() @ np.random.default_rng(7).standard_normal(A.n)
+    cfg = lambda: PastixConfig(tile_size=32, update_dtype="bfloat16",
+                               factorization=Factorization[kind])
+    s = Pastix(A, cfg(), device=cuda)
+    s.solve(b)
+    v = A.values.astype(np.float64)
+    v[A.rowind == np.repeat(np.arange(A.n), np.diff(A.colptr))] *= 1.1
+    s.factorize(v)
+    x = s.solve(b)
+    A2 = SparseMatrix(A.n, A.colptr, A.rowind, v, A.symmetric_storage)
+    fresh = Pastix(A2, cfg(), device=cuda)
+    xf = fresh.solve(b)
+    assert torch.equal(s.factors.pool, fresh.factors.pool)
+    if kind == "LU":
+        assert torch.equal(s.factors.pool_u, fresh.factors.pool_u)
+    assert s.report.refine_iters == fresh.report.refine_iters
+    assert s.report.residual <= 1e-10
+    assert np.linalg.norm(x - xf) <= 1e-12 * np.linalg.norm(xf)
+
+
+@pytest.mark.parametrize("kind", ["LLT", "LDLT", "LU"])
+def test_level_solve_on_cuda_matches_k2(cuda, kind):
+    """The per-level solve of fast_solve=False on the card against K2's
+    solve on the same factors, 1e-5 relative; the factorization of
+    fast_solve=False makes no inverse diagonal tiles."""
+    from pastix_tpu_torch.numeric.factorize import build_diag_inverse_fn
+    from pastix_tpu_torch.solve import build_solve_fn_sweep, run_host
+
+    gen = poisson_3d if kind != "LU" else convection_diffusion_3d
+    A = gen(12)
+    cfg = PastixConfig(tile_size=32, factorization=Factorization[kind],
+                       fast_solve=False)
+    s = Pastix(A, cfg, device=cuda)
+    f = s.factorize()
+    assert f.dinv is None and f.dinv_u is None
+    k2 = SW.run_sweep.launches
+    B = np.random.default_rng(8).standard_normal((s.layout.n, 3))
+    got = run_host(f, B, s._solve_fn)
+    assert SW.run_sweep.launches == k2
+    inv = build_diag_inverse_fn(s.layout, cuda, Factorization[kind])(f.pool)
+    f.dinv, f.dinv_u = inv if kind == "LU" else (inv, None)
+    want = run_host(f, B, build_solve_fn_sweep(s.layout, cuda,
+                                               Factorization[kind]))
+    assert SW.run_sweep.launches > k2
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()

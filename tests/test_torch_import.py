@@ -26,10 +26,14 @@ SLICE_MODULES = [
     "pastix_tpu_torch._build",
     "pastix_tpu_torch._device",
     "pastix_tpu_torch.analyze",
+    "pastix_tpu_torch.cli",
     "pastix_tpu_torch.config",
     "pastix_tpu_torch.convert",
+    "pastix_tpu_torch.distributed",
+    "pastix_tpu_torch.drivers",
     "pastix_tpu_torch.generators",
     "pastix_tpu_torch.krylov",
+    "pastix_tpu_torch.murge",
     "pastix_tpu_torch.native",
     "pastix_tpu_torch.numeric.block",
     "pastix_tpu_torch.numeric.cache",
@@ -71,6 +75,16 @@ SOLVES = (
     "x = P.spsolve(C, C.to_scipy() @ np.ones(C.n), device='cpu',\n"
     "              tile_size=32, factorization=P.Factorization.LU)\n"
     "assert np.abs(x - 1).max() < 1e-9\n"
+    "from pastix_tpu_torch.distributed import CSCDPart, dspsolve\n"
+    "M = A.to_scipy().tocoo()\n"
+    "xs = dspsolve(A.n, [CSCDPart(M.row, M.col, M.data)], [b],\n"
+    "              P.PastixConfig(tile_size=16), device='cpu')\n"
+    "assert np.abs(xs[0] - 1).max() < 1e-9\n"
+    "from pastix_tpu_torch.pastix import pastix\n"
+    "M = M.tocsc()\n"
+    "x, rep = pastix(A.n, M.indptr, M.indices, M.data, b,\n"
+    "                P.PastixConfig(tile_size=16), device='cpu')\n"
+    "assert np.abs(x - 1).max() < 1e-9 and rep.residual <= 1e-10\n"
 )
 
 

@@ -6,7 +6,12 @@ Held: both refined residuals <= 1e-10; solutions agree to 1e-8 relative
 ``refine_iters`` differ by at most 2 (the reference refines in fp32 and
 then on the host in fp64, the port in one fp64-residual loop); the
 reference's factors handed to the port's solve reproduce the reference's
-solution to 1e-8.  Plus the front door's refusals.
+solution to 1e-8.  Then, on the same solvers, new values through
+``factorize(values)`` on both (solutions to 1e-8, ``refine_iters`` within
+2, the port's device loop alone reaching 1e-10 on the new matrix, so its
+ELL matrix was rebuilt) and ``as_preconditioner`` on both on the same
+vectors (1e-5 relative).  Plus the front door's members and options,
+taken or refused naming their ROADMAP item.
 """
 
 import numpy as np
@@ -83,6 +88,48 @@ def test_reference_factors_through_port_solve(pair):
     assert _rel(x, x_ref) <= 1e-8
 
 
+def _raised_diagonal(values, A):
+    """A's stored values with the diagonal raised by 10 %: the pattern
+    stays, the solution moves."""
+    v = np.array(values, dtype=np.float64)
+    col = np.repeat(np.arange(A.n), np.diff(A.colptr))
+    v[A.rowind == col] *= 1.1
+    return v
+
+
+def test_factorize_values_matches_reference(pair):
+    """New values on both solvers' cached analyses.  The port's device
+    loop alone reaches 1e-10 against the new matrix (no host step): its
+    ELL matrix was rebuilt; with the old one it would refine towards the
+    old matrix's solution."""
+    ref, _, port, _, b = pair
+    v = _raised_diagonal(port.A.values, port.A)
+    ref.factorize(v)
+    port.factorize(v)
+    x_ref, x = ref.solve(b), port.solve(b)
+    M2 = port.A.to_scipy()
+    assert port.report.residual <= 1e-10 and ref.report.residual <= 1e-10
+    assert _rel(M2 @ x, b) <= 1e-10
+    assert _rel(x, x_ref) <= 1e-8
+    assert abs(ref.report.refine_iters - port.report.refine_iters) <= 2
+    x_dev, iters = port._device_solve_refined(port._perm_rhs(b))
+    assert iters == port.report.refine_iters
+    assert _rel(port._A_perm @ x_dev, port._perm_rhs(b)) <= 1e-10
+    with pytest.raises(ValueError, match="values length"):
+        port.factorize(v[:-1])
+
+
+def test_as_preconditioner_matches_reference(pair):
+    """M⁻¹ of both solvers on the same vectors, 1-D and a block."""
+    ref, _, port, _, b = pair
+    V = np.random.default_rng(11).standard_normal((b.size, 2))
+    P, R = port.as_preconditioner(), ref.as_preconditioner()
+    assert P.shape == R.shape and P.dtype == np.float32
+    for got, want in ((P.matvec(b), R.matvec(b)), (P.matmat(V), R.matmat(V))):
+        assert got.shape == want.shape
+        assert _rel(got, want) <= 1e-5
+
+
 def test_spsolve_block_rhs():
     A = poisson_3d(6)
     X = np.random.default_rng(3).standard_normal((A.n, 3))
@@ -103,60 +150,113 @@ def test_unported_kinds_raise(kind):
         Pastix(poisson_3d(4), PastixConfig(**kind), device="cpu")
 
 
-@pytest.mark.parametrize("cfg", [
-    dict(compute_dtype="complex64"), dict(mesh_shape=(2,)), dict(ooc=True),
-    dict(incomplete=True), dict(refinement=RefinementMethod.GMRES),
-    dict(schur=True, factorization=Factorization.LDLH),
+@pytest.mark.parametrize("cfg,taken", [
+    (dict(compute_dtype="complex64"), False), (dict(mesh_shape=(2,)), False),
+    (dict(ooc=True), False), (dict(incomplete=True), False),
+    (dict(refinement=RefinementMethod.GMRES), True),
+    (dict(schur=True, factorization=Factorization.LDLH), False),
 ], ids=["complex", "mesh", "ooc", "ilu", "gmres", "schur"])
-def test_unported_options_raise(cfg):
+def test_unported_options_raise(cfg, taken):
     """The schur case: Schur under LDLᴴ is slice 3 (LLᵗ, LDLᵗ and LU
-    Schur are ported)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md slice"):
-        Pastix(poisson_3d(4), PastixConfig(**cfg), device="cpu")
+    Schur are ported).  The gmres case is taken since the refinement
+    methods were ported (A4): it solves."""
+    if not taken:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md slice"):
+            Pastix(poisson_3d(4), PastixConfig(**cfg), device="cpu")
+        return
+    A = poisson_3d(4)
+    s = Pastix(A, PastixConfig(tile_size=16, **cfg), device="cpu")
+    x = s.solve(A.to_scipy() @ np.ones(A.n))
+    assert np.abs(x - 1).max() < 1e-9 and s.report.residual <= 1e-10
 
 
 @pytest.mark.parametrize("field,value,item", [
     ("packed_update", True, "A7"), ("packed_update", None, None),
     ("packed_update", False, None), ("trace", True, "A10"),
-    ("fast_solve", False, "A2"), ("device_refine", False, "A2"),
-    ("residual_dtype", "float32", "A2"),
+    # taken since A2 ported them: the ids keep the item that did
+    pytest.param("fast_solve", False, None, id="fast_solve-False-A2"),
+    pytest.param("device_refine", False, None, id="device_refine-False-A2"),
+    pytest.param("residual_dtype", "float32", None,
+                 id="residual_dtype-float32-A2"),
 ])
 def test_config_fields_raise_or_are_taken(field, value, item):
     """Every config field the port does not act on raises naming its
-    ROADMAP item; packed_update=None (auto) is off, as False."""
+    ROADMAP item; packed_update=None (auto) is off, as False.  A field
+    that is taken is acted on: fast_solve=False makes no inverse diagonal
+    tiles and both refine on the host loop, and residual_dtype acts there
+    (its residuals then accumulate in the matrix's fp64, as the
+    reference's ``result_type`` makes them): with device_refine=False
+    too, the host loop runs with it."""
     cfg = PastixConfig(**{field: value})
     if item is None:
-        assert Pastix(poisson_3d(4), cfg, device="cpu").config is cfg
+        A = poisson_3d(4)
+        s = Pastix(A, cfg, device="cpu")
+        assert s.config is cfg
+        if field == "residual_dtype":
+            s = Pastix(A, PastixConfig(residual_dtype=value,
+                                       device_refine=False), device="cpu")
+        if field != "packed_update":
+            x = s.solve(A.to_scipy() @ np.ones(A.n))
+            assert np.abs(x - 1).max() < 1e-9
+            assert s.report.residual <= 1e-10
+            assert (s.factors.dinv is None) == (field == "fast_solve")
+            assert s._refine_fn is None
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}\\)"):
         Pastix(poisson_3d(4), cfg, device="cpu")
 
 
 @pytest.mark.parametrize("member,item", [
-    ("factorize", "A2"), ("as_preconditioner", "A2"), ("clean", "A2"),
-    ("dump_trace", "A10"), ("pastix", "A2"),
+    # ported by A2: the ids keep the item that did
+    pytest.param("factorize", None, id="factorize-A2"),
+    pytest.param("as_preconditioner", None, id="as_preconditioner-A2"),
+    pytest.param("clean", None, id="clean-A2"),
+    ("dump_trace", "A10"),
+    pytest.param("pastix", None, id="pastix-A2"),
 ])
 def test_unported_members_raise(member, item):
-    """The reference's members the port lacks raise naming their ROADMAP
-    item, with the reference's signatures; ``factorize()`` without
-    values still factors."""
+    """The reference's members, with the reference's signatures: the one
+    the port lacks raises naming its ROADMAP item; the others run:
+    ``factorize(values)`` refactors new values (here A's own, in
+    ``A.values`` order) to the same factors, ``as_preconditioner``
+    solves, ``clean`` drops the factors and a later solve reruns the
+    pipeline, and ``pastix()`` on the CSC arrays solves; ``factorize()``
+    without values still factors."""
+    from pastix_tpu_torch.pastix import pastix
+
     A = poisson_3d(4)
     s = Pastix(A, PastixConfig(tile_size=8), device="cpu")
     M = A.to_scipy().tocsc()
+    b = M @ np.ones(A.n)
     calls = {
-        "factorize": lambda: s.factorize(M.data),
+        "factorize": lambda: s.factorize(A.values),
         "as_preconditioner": s.as_preconditioner,
         "clean": s.clean,
         "dump_trace": lambda: s.dump_trace("trace.json"),
-        "pastix": lambda: pastix_tpu_torch.pastix.pastix(
-            A.n, M.indptr, M.indices, M.data, np.ones(A.n), PastixConfig(),
-            base=0),
+        "pastix": lambda: pastix(
+            A.n, M.indptr, M.indices, M.data, b,
+            PastixConfig(tile_size=8), base=0, device="cpu"),
     }
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}\\)"):
-        calls[member]()
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md {item}\\)"):
+            calls[member]()
+    f = s.factorize()
+    assert f is s.factors and np.isfinite(f.pool.numpy()).all()
     if member == "factorize":
-        f = s.factorize()
-        assert f is s.factors and np.isfinite(f.pool.numpy()).all()
+        pool = f.pool.clone()
+        assert torch.equal(calls[member]().pool, pool)
+    elif member == "as_preconditioner":
+        op = calls[member]()
+        assert op.shape == (A.n, A.n) and op.dtype == np.float32
+        assert np.abs(op.matvec(b) - 1).max() < 1e-5
+    elif member == "clean":
+        calls[member]()
+        assert s.factors is None and s.layout is None and s._ell is None
+        assert np.abs(s.solve(b) - 1).max() < 1e-9
+    elif member == "pastix":
+        x, report = calls[member]()
+        assert np.abs(x - 1).max() < 1e-9 and report.residual <= 1e-10
 
 
 def _layout_arrays(lay):
