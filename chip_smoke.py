@@ -179,6 +179,29 @@ prints the final ``ok`` line:
    then new values on the cached analysis), ``dspsolve`` over 4 CSCD
    parts and ``cli.main(["-lap3", "24", "--refine", "gmres",
    "--steps"])`` (exit code 0);
+17. complex and fp64 factorizations (ROADMAP A3: torch ops in the pool's
+   dtype, no hand kernel): at T=128, each solver analyzed (one host
+   analysis a layout, saved and loaded), factorized twice (the second
+   timed) and solved twice (the second timed): (a) Hermitian LLᴴ in
+   complex64 and complex128 on ``herm_3d(--nx)`` (poisson_3d + i S -
+   i Sᵀ, S = 0.2 N(0, 1) on the strict lower pattern, plus 0.1 I to stay
+   definite; dense tail on); (b) complex-symmetric LDLᵗ and LLᵗ in
+   complex64 on ``helmholtz_3d(--nx)`` (poisson_3d - (k² + 0.05i k²) /
+   (nx + 1)² I, k = 10), GMRES; (c) LDLᴴ in complex64 on the indefinite
+   ``herm_3d(--nx, 0) - σI`` (σ of phase 8), GMRES, its inertia from the
+   real pivots logged; (d) complex LU in complex64 on
+   ``convection_diffusion_3d(--lu-nx) + 0.3i |B|`` (a smaller nx if the
+   pools do not fit twice over); (e) fp64 LLᵗ on ``poisson_3d(--nx)`` and
+   LDLᵗ on phase 8's shift-invert matrix (the device loop); (f)
+   ``cli.main(["-lap3", "24", "--dtype", "c128", "--steps"])`` (exit code
+   0).  Each run: residual <= 1e-10 in the host's complex128 or fp64, no
+   hand kernel launched and no twin run, its figures logged (``fact_ms``,
+   the reference's real-arithmetic ``fact_flops``, solve and host
+   refinement ms, steps, static pivots, peak memory).  Then, on the card
+   only, the complex64 pools and unrefined solutions of (a) and (b) at 24³
+   against the same solvers on the CPU (1e-4 max|cpu|), and a complex64
+   ``bmm`` under ``pin_precision`` against complex128 (1e-5); the phase's
+   seconds are logged;
 
 then the card's nvidia-smi line, one JSON line of the kernels (each
 variant on its own line of the list, ``launches`` from the path that runs
@@ -205,6 +228,12 @@ TOL_RES = 1e-10  # fp64 ||b - A x|| / ||b|| after refinement
 TOL_S = 1e-4  # max|S - S_ref| / max|S_ref| with fp32 updates
 TOL_REFAC = 1e-12  # factorize(values) against a fresh solver, relative
 CLEAN_SLACK = 64 * 2 ** 20  # bytes clean() may leave allocated
+# the skew part of herm_3d lowers the smallest eigenvalues by about 0.041
+# (eigsh on the host, nx = 16 to 40); poisson_3d(64)'s smallest is 0.007,
+# so phase 17 (a) adds this to stay definite
+HERM_DELTA = 0.1
+TOL_CARD = 1e-4  # card against CPU, complex64 pool and solution, max|ref|
+TOL_BMM = 1e-5  # complex64 bmm against complex128 under pin_precision
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -2345,6 +2374,281 @@ def front_door_path(nx, lu_nx, dev, main_iters):
         shutil.rmtree(io_root, ignore_errors=True)
 
 
+def herm_3d(nx, delta=HERM_DELTA):
+    """Phase 17 (a): poisson_3d(nx) + i S - i Sᵀ + delta I, S the strict
+    lower triangle of the Laplacian's pattern times 0.2 N(0, 1) from
+    ``default_rng(0)``: ``tests/test_complex.py``'s ``_hermitian_spd`` in
+    3D (scipy CSC, Hermitian).  Without ``delta`` the matrix is
+    indefinite from nx = 32 on (the skew part lowers the low modes by
+    about 0.041); ``delta=0`` is (c)'s base."""
+    import scipy.sparse as sp
+    from pastix_tpu_torch.generators import poisson_3d
+
+    L = poisson_3d(nx).to_scipy().tocsc()
+    C = sp.tril(L, -1).tocoo()
+    S = sp.coo_matrix(
+        (0.2 * np.random.default_rng(0).standard_normal(C.nnz),
+         (C.row, C.col)), shape=L.shape)
+    return (L + 1j * S - 1j * S.T + delta * sp.eye(L.shape[0])).tocsc()
+
+
+def helmholtz_3d(nx, k=10.0, damping=0.05):
+    """Phase 17 (b): poisson_3d(nx) - (k² + i damping k²) / (nx + 1)² I,
+    ``generators.helmholtz_2d``'s formula on the 3D Laplacian (scipy CSC,
+    complex-symmetric)."""
+    import scipy.sparse as sp
+    from pastix_tpu_torch.generators import poisson_3d
+
+    L = poisson_3d(nx).to_scipy().tocsc()
+    shift = (k * k + 1j * damping * k * k) / (nx + 1) ** 2
+    return (L - shift * sp.eye(L.shape[0])).tocsc()
+
+
+def complex_lu_3d(nx):
+    """Phase 17 (d): B + 0.3i |B|, B = convection_diffusion_3d(nx)
+    (``tests/test_complex.py``'s complex LU construction)."""
+    from pastix_tpu_torch.generators import convection_diffusion_3d
+
+    B = convection_diffusion_3d(nx).to_scipy().tocsc()
+    return (B + 0.3j * abs(B)).tocsc()
+
+
+def precision_cfg(dtype, kind="LLT", herm=False, **kw):
+    from pastix_tpu_torch.config import (
+        Factorization, PastixConfig, Symmetry,
+    )
+
+    sym = Symmetry.HERMITIAN if herm else Symmetry.SYMMETRIC
+    return PastixConfig(tile_size=128, compute_dtype=dtype,
+                        factorization=Factorization[kind], symmetry=sym, **kw)
+
+
+def precision_run(label, M, cfg, dev, solver=None, t=None):
+    """One run of phase 17 on the scipy matrix ``M``: analyze (unless
+    ``solver`` is already analyzed, in ``t`` seconds), factorize twice (the second timed),
+    solve b = M 1 twice (the second timed and counted alone); the counts
+    are set to 0 before the first factorize and read after the second
+    solve: no hand kernel and no twin may run.  Residual <= 1e-10 in the
+    host's complex128 or fp64.  Returns (solver, figures)."""
+    import torch
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    if solver is None:
+        solver, t = analyzed(M, cfg, dev)
+    s, lay = solver, solver.layout
+    reset_counts()
+    fact = []
+    for _ in range(2):
+        s.factorize()
+        fact.append(s.report.fact_time * 1e3)
+    b = M @ np.ones(M.shape[0])
+    s.solve(b)
+    rec = instrument(s)
+    x = s.solve(b)
+    read_counts(f"precision {label}", (), tuple(counters()))
+    res = float(np.linalg.norm(b - M @ x) / np.linalg.norm(b))
+    pool = s.factors.pool
+    npools = 1 if s.factors.pool_u is None else 2
+    num = {
+        "dtype": str(pool.dtype).split(".")[-1], "kind": s._kind.name,
+        "hermitian": s.factors.hermitian, "n": int(M.shape[0]),
+        "analysis_s": sum(t.values()), "fact_ms": fact,
+        "fact_flops": s.report.fact_flops,
+        "solve_ms": s.report.solve_time * 1e3,
+        "refine_ms": s.report.refine_time * 1e3,
+        "steps": s.report.refine_iters,
+        "host_steps": s.report.refine_iters - rec["dev_iters"],
+        "device_loop": s._refine_fn is not None,
+        "residual": s.report.residual, "residual_original_order": res,
+        "static_pivots": s.report.static_pivots,
+        "dense_tail_m": s.report.dense_tail_m, "levels": s.report.n_levels,
+        "pools_gib": npools * pool.numel() * pool.element_size() / 2 ** 30,
+        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                     if cuda else None),
+    }
+    log(f"precision {label}: " + json.dumps(num))
+    if x.shape != (M.shape[0],) or not np.isfinite(x).all():
+        raise AssertionError(f"{label}: the solution is not finite")
+    if not max(res, s.report.residual) <= TOL_RES:
+        raise AssertionError(f"{label}: residual {res:.3e} above {TOL_RES}")
+    return s, num
+
+
+def card_matches_cpu(M, cfg, dev):
+    """(pool, solution) max|card - cpu| / max|cpu| of one solver
+    configuration, its unrefined solve of b = M 1 included: the card's
+    complex products in the precision of the CPU's."""
+    from pastix_tpu_torch import Pastix
+
+    out = []
+    for d in (dev, "cpu"):
+        s = Pastix(M, cfg, device=d)
+        x = s.solve(M @ np.ones(M.shape[0]), refine=False)
+        out.append((s.factors.pool.cpu().numpy(), x))
+    rel = lambda a, r: float(np.abs(a - r).max() / np.abs(r).max())
+    (p1, x1), (p0, x0) = out
+    return rel(p1, p0), rel(x1, x0)
+
+
+def bmm_pinned_error(dev, seed=0):
+    """max|bmm(a, b) - bmm in complex128| / max|ref| of complex64 (64,
+    128, 128) operands under ``pin_precision``, with TF32 asked for
+    outside it: complex products must stay in true fp32."""
+    import torch
+    from pastix_tpu_torch._device import pin_precision
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    a, b = (torch.randn((64, 128, 128), dtype=torch.complex64, generator=g)
+            .to(dev) for _ in range(2))
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("medium")
+    try:
+        with pin_precision():
+            c = torch.bmm(a, b)
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    ref = torch.bmm(a.to(torch.complex128), b.to(torch.complex128))
+    return float((c.to(torch.complex128) - ref).abs().max()
+                 / ref.abs().max())
+
+
+def precision_path(nx, lu_nx, dev):
+    """Phase 17: complex and fp64 factorizations at full width (see the
+    module docstring); each run's figures go to the log.  Returns the
+    runs' figures by label."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from pastix_tpu_torch import cli
+    from pastix_tpu_torch.config import IOStrategy, RefinementMethod
+
+    t_phase = time.perf_counter()
+    runs = {}
+    io_root = tempfile.mkdtemp(prefix="pastix_precision_")
+    saved = set()
+
+    def io(group):
+        # one host analysis a layout: poisson_3d(nx)'s pattern with the
+        # dense tail (LLᴴ, fp64 LLᵗ) and without it (the others)
+        d = os.path.join(io_root, group)
+        first = group not in saved
+        saved.add(group)
+        if first:
+            os.makedirs(d)
+        return dict(io_strategy=IOStrategy.SAVE if first else IOStrategy.LOAD,
+                    io_dir=d)
+
+    def run(label, M, cfg, solver=None, t=None):
+        gc.collect()
+        s, num = precision_run(label, M, cfg, dev, solver, t)
+        runs[label] = num
+        return s
+
+    GMRES = RefinementMethod.GMRES
+    try:
+        # (a) Hermitian LLᴴ, complex64 and complex128, dense tail on
+        H = herm_3d(nx)
+        for dt in ("complex64", "complex128"):
+            run(f"LLH {dt} herm_3d({nx})", H,
+                precision_cfg(dt, herm=True, **io("tail")))
+        # (b) complex-symmetric LDLᵗ and LLᵗ on the 3D Helmholtz matrix
+        Hz = helmholtz_3d(nx)
+        for kind in ("LDLT", "LLT"):
+            run(f"{kind} complex64 helmholtz_3d({nx})", Hz,
+                precision_cfg("complex64", kind, refinement=GMRES,
+                              **io("plain")))
+        del Hz
+        # (c) LDLᴴ of the indefinite herm_3d(nx, 0) - sigma I
+        _, sigma = shift_invert(nx)
+        import scipy.sparse as sp
+
+        Hc = (herm_3d(nx, 0.0) - sigma * sp.eye(H.shape[0])).tocsc()
+        del H
+        label = f"LDLH complex64 herm_3d({nx}, 0) - {sigma:.6g} I"
+        s = run(label, Hc, precision_cfg("complex64", "LDLH", herm=True,
+                                         refinement=GMRES, **io("plain")))
+        d = s.factors.d.real
+        inertia = (int((d < 0).sum()), int((d > 0).sum()), int((d == 0).sum()))
+        runs[label]["inertia"] = inertia
+        log(f"  LDLH inertia (negative, positive, zero real pivots of "
+            f"{d.numel()}, padding included): {inertia}, static pivots "
+            f"{s.report.static_pivots}")
+        del s, Hc, d
+        # (d) complex LU: the largest nx <= lu_nx whose two complex64
+        # pools fit the card twice over (the pools and their temporaries)
+        nxl = lu_nx
+        while True:
+            C = complex_lu_3d(nxl)
+            s, t = analyzed(C, precision_cfg("complex64", "LU"), dev)
+            need = 2 * 2 * s.layout.npool * s.layout.T ** 2 * 8
+            free = (torch.cuda.mem_get_info(dev)[0] if dev.type == "cuda"
+                    else need)
+            log(f"  complex LU convection_diffusion_3d({nxl}): pools "
+                f"{need / 2 / 2 ** 30:.3f} GiB, free {free / 2 ** 30:.3f} GiB")
+            if need <= free or nxl <= 24:
+                break
+            del s, C
+            gc.collect()
+            nxl -= 6
+        log(f"  complex LU at nx = {nxl}")
+        run(f"LU complex64 convection_diffusion_3d({nxl}) + 0.3i|B|", C,
+            None, solver=s, t=t)
+        del s, C
+        # (e) fp64: LLᵗ on poisson_3d(nx), LDLᵗ on the shift-invert matrix
+        from pastix_tpu_torch.generators import poisson_3d
+
+        P = poisson_3d(nx).to_scipy().tocsc()
+        run(f"LLT float64 poisson_3d({nx})", P,
+            precision_cfg("float64", **io("tail")))
+        del P
+        Si = shift_invert(nx)[0].to_scipy().tocsc()
+        run(f"LDLT float64 poisson_3d({nx}) - {sigma:.6g} I", Si,
+            precision_cfg("float64", "LDLT", update_dtype=None,
+                          **io("plain")))
+        del Si
+        gc.collect()
+        # (f) the CLI in complex128
+        reset_counts()
+        rc = cli.main(["-lap3", "24", "--dtype", "c128", "--steps"]
+                      + ([] if dev.type == "cuda" else ["--cpu"]))
+        read_counts("precision CLI -lap3 24 --dtype c128", (),
+                    tuple(counters()))
+        log(f"precision CLI -lap3 24 --dtype c128 --steps: exit code {rc}")
+        if rc != 0:
+            raise AssertionError("the CLI failed in complex128")
+        runs["CLI c128"] = {"rc": rc}
+        # the card-only checks at 24³
+        if dev.type == "cuda":
+            for label, M, cfg in (
+                    ("LLH", herm_3d(24), precision_cfg("complex64",
+                                                       herm=True)),
+                    ("LDLT", helmholtz_3d(24),
+                     precision_cfg("complex64", "LDLT")),
+                    ("LLT", helmholtz_3d(24),
+                     precision_cfg("complex64", "LLT"))):
+                ep, ex = card_matches_cpu(M, cfg, dev)
+                log(f"  card against CPU, {label} complex64 at 24³: pool "
+                    f"{ep:.3e}, unrefined solution {ex:.3e}")
+                runs[f"card vs cpu {label}"] = {"pool": ep, "solution": ex}
+                if not max(ep, ex) <= TOL_CARD:
+                    raise AssertionError(f"{label}: the card's complex64 "
+                                         "differs from the CPU's")
+            eb = bmm_pinned_error(dev)
+            log(f"  complex64 bmm under pin_precision against complex128: "
+                f"{eb:.3e}")
+            runs["bmm complex64"] = {"rel_err": eb}
+            if not eb <= TOL_BMM:
+                raise AssertionError("complex64 bmm is not true fp32")
+    finally:
+        shutil.rmtree(io_root, ignore_errors=True)
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 def sass_count(build, kernel, ops, also=None):
     """How many of each SASS opcode of ``ops`` the library's ``kernel``
     functions hold (``cuobjdump -sass``, run once a library; ``also``:
@@ -2588,6 +2892,10 @@ def main() -> int:
     front_door_path(args.nx, args.lu_nx, dev, main_num["iters"])
     elapsed("phase 16")
 
+    # 17. complex and fp64 factorizations: torch ops, no hand kernel
+    precision = precision_path(args.nx, args.lu_nx, dev)
+    elapsed("phase 17")
+
     # no single PyTorch call computes a gather-GEMM-scatter over a pair
     # list or a block-sparse triangular sweep: library_ms is null but for
     # K4 LU (lu_factor_ex without pivoting) and K13 (index_select of the
@@ -2719,6 +3027,8 @@ def main() -> int:
             log(f"path {kind} right-looking {mode}: " + json.dumps(num))
     for e2, (_, num) in fused.items():
         log(f"path LLT fused-DIAG {e2}: " + json.dumps(num))
+    for label, num in precision.items():
+        log(f"path precision {label}: " + json.dumps(num))
     for T, (ms, plain, bd, lib, dev_ms, dev_lib) in k8_one.items():
         log(f"K8 one tile T={T}: " + json.dumps(
             {"ms": ms, "plain_ms": plain, "bound_ms": bd[0],

@@ -19,26 +19,29 @@ from pastix_tpu_torch.numeric.factorize import (
 )
 
 
-def factors_from_jax(factors, device=None) -> Factors:
-    """Real LLᵗ, LDLᵗ and LU, Schur mode included (the pool's Schur tiles
-    hold S): the pool, the Uᵗ pool (LU) and the pivots (LDLᵗ) are carried
-    across.  The inverse diagonal tiles are computed here when the
-    reference did not keep them; the slots of unfactored (Schur) columns
-    are zeroed, as the port's own ``build_diag_inverse_fn`` leaves
-    them."""
+def factors_from_jax(factors, device=None, hermitian=None) -> Factors:
+    """LLᵗ (LLᴴ), LDLᵗ, LDLᴴ and LU in their own dtype (float32,
+    float64, complex64, complex128), Schur mode included (the pool's Schur
+    tiles hold S): the pool, the Uᵗ pool (LU) and the pivots (LDLᵗ, LDLᴴ)
+    are carried across.  ``hermitian`` (default: the reference's, LLᵗ and
+    LDLᴴ) marks a complex pool's factors as conjugated.  The inverse
+    diagonal tiles are computed here when the reference did not keep
+    them; the slots of unfactored (Schur) columns are zeroed, as the
+    port's own ``build_diag_inverse_fn`` leaves them."""
     kind = Factorization[factors.kind.name]
-    if kind not in (Factorization.LLT, Factorization.LDLT, Factorization.LU):
-        raise NotImplementedError(
-            f"{kind} factors: not ported (ROADMAP.md slice 3)"
-        )
     dev = resolve_device(device)
     lay = factors.layout
-    tens = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    dt = np.asarray(factors.pool).dtype
+    if hermitian is None:
+        hermitian = kind in (Factorization.LLT, Factorization.LDLH)
+    tens = lambda a: torch.tensor(np.asarray(a, dt), device=dev)
     out = Factors(
         kind, lay, tens(factors.pool),
         pool_u=tens(factors.pool_u) if kind == Factorization.LU else None,
-        d=tens(factors.d) if kind == Factorization.LDLT else None,
+        d=(tens(factors.d) if kind in (Factorization.LDLT, Factorization.LDLH)
+           else None),
         n_static_pivots=int(factors.n_static_pivots),
+        hermitian=bool(hermitian) and np.iscomplexobj(factors.pool),
     )
     if factors.dinv is None:
         inv = build_diag_inverse_fn(lay, dev, kind)(out.pool)
@@ -47,7 +50,7 @@ def factors_from_jax(factors, device=None) -> Factors:
     unfactored = np.setdiff1d(np.arange(lay.nbc), factored_cols(lay))
 
     def kept(dinv):
-        dinv = np.array(dinv, np.float32)
+        dinv = np.array(dinv, dt)
         dinv[unfactored] = 0.0
         return torch.tensor(dinv, device=dev)
 

@@ -8,7 +8,8 @@ no fp64 unit and its remote compiler wedged on the fused program.  The
 H100 has native fp64, so the port runs one loop a method: the vectors and
 their scalars in fp64 on the device, the residual ``b - A x`` an ELL
 gather-and-sum (as the reference's XLA code), the preconditioner
-``M^{-1} r`` in fp32 through the two K2 sweeps.  The loop is driven from
+``M^{-1} r`` in the pool's dtype: fp32 through the two K2 sweeps, or fp64
+through the per-level solve of a real fp64 pool (``solve.build_solve_fn``).  The loop is driven from
 the host and reads one flag a step (GMRES: one a step and one a
 restart); every scalar stays on the device.
 
@@ -78,7 +79,7 @@ def _healthy(r2: torch.Tensor, bn2: torch.Tensor) -> torch.Tensor:
 
 
 def build_device_refine_fn(layout, solve_fn, method=RefinementMethod.SIMPLE,
-                           restart: int = 30):
+                           restart: int = 30, dtype=torch.float32):
     """``fn(factors, cols, vals, b, eps, itermax) -> (x, iters)``.
 
     ``factors`` is the tuple of the kind's factor tensors that
@@ -105,7 +106,9 @@ def build_device_refine_fn(layout, solve_fn, method=RefinementMethod.SIMPLE,
       (``refine.py``) counts them.
 
     ``iters`` counts the method's steps; ``fn.applies`` the
-    preconditioner applications (``solve_fn`` calls) of the last call."""
+    preconditioner applications (``solve_fn`` calls) of the last call.
+    ``dtype`` is the pool's: M⁻¹ takes its vector in it (float32 or
+    float64)."""
     nbc, T = layout.nbc, layout.T
     method = RefinementMethod(method)
     m = int(restart)
@@ -115,7 +118,7 @@ def build_device_refine_fn(layout, solve_fn, method=RefinementMethod.SIMPLE,
 
         def M(r):
             fn.applies += 1
-            z = solve_fn(*factors, r.to(torch.float32).view(nbc, T, -1))
+            z = solve_fn(*factors, r.to(dtype).view(nbc, T, -1))
             return z.reshape(nbc * T, -1).to(torch.float64)
 
         A = lambda v: ell_spmv(cols, vals, v)

@@ -1,5 +1,5 @@
-"""Numeric factorization: LLᵗ, LDLᵗ and LU, real (PyTorch counterpart of
-``pastix_tpu/numeric/factorize.py``).
+"""Numeric factorization: LLᵗ (LLᴴ), LDLᵗ, LDLᴴ and LU (PyTorch
+counterpart of ``pastix_tpu/numeric/factorize.py``).
 
 The E2 (trailing update) schedule follows the reference's gate
 (:func:`e2_schedule`).  By default every level is left-looking (the
@@ -22,6 +22,17 @@ reference's scanned levels run XLA's ``gemm_scatter``).
 
 LDLᵗ and LU factor the diagonal tiles with static pivoting (kernel K4);
 the number of clamped pivots stays on the device until the end.
+
+That is the route of an fp32 real pool.  Every other pool (fp64,
+complex64, complex128: :func:`_build_plain`) runs the reference's XLA
+functions as torch ops, as the reference sends complex pools around every
+Pallas kernel: left-looking over the same ``regroup_left`` tables, the
+updates gathered, multiplied with ``bmm`` and scattered with
+``index_add_`` in byte-capped chunks (``kernels.gemm_scatter``), the
+diagonal tiles through ``cholesky_ex`` or the reference's T-step loops
+(``kernels.potrf_sym_batch``, ``ldlt_batch``, ``getrf_batch``), the panel
+TRSM through ``solve_triangular``.  ``hermitian`` conjugates the b side
+of each update, the TRSM and the dense tail (LLᴴ, LDLᴴ).
 """
 
 from __future__ import annotations
@@ -40,7 +51,11 @@ from pastix_tpu_torch.numeric.block import (
     block_plan, build_block_plan, gemm_scatter_block,
 )
 from pastix_tpu_torch.numeric.chol_inv import chol_inv, chol_inv_pool
-from pastix_tpu_torch.numeric.kernels import potrf_batch, round_to, tri_inv_batch
+from pastix_tpu_torch.numeric.kernels import (
+    chunk_len, gemm_scatter, gemm_scatter_ab, getrf_batch, ldlt_batch,
+    np_dtype, op_t, potrf_batch, round_to, trsm_ldlt, trsm_llt, trsm_lu_l,
+    trsm_lu_u, tri_inv_batch,
+)
 from pastix_tpu_torch.numeric.leftlook import (
     build_ll_schedule, gemm_scatter_ll, ll_plan, regroup_left,
 )
@@ -63,10 +78,11 @@ _PIPE_GROUP, _PIPE_CHUNK = 2, 8192
 
 
 def build_coefinit_fn(layout: SolverLayout, A_pattern: sp.spmatrix, device,
-                      for_lu: bool = False):
+                      for_lu: bool = False, dtype=torch.float32):
     """Device coefinit: ``fn(vals) -> pool`` (``(pool, pool_u)`` with
     ``for_lu``) with ``vals`` the COO data of ``A_pattern``
-    (``sp.coo_matrix(A_perm).data``) as a float32 tensor on ``device``.
+    (``sp.coo_matrix(A_perm).data``) as a tensor on ``device``, the pools
+    in ``dtype`` (``fn.dtype``).
     The flat scatter indices are built once per pattern; entries land in
     the pool with an accumulating ``index_put_`` and the padded diagonal
     is set to 1 (reference ``build_coefinit_fn``).  Symmetric kinds keep
@@ -91,8 +107,8 @@ def build_coefinit_fn(layout: SolverLayout, A_pattern: sp.spmatrix, device,
     numel = layout.npool * T * T
 
     def scatter(vals, sel, idx):
-        pool = torch.zeros(numel, dtype=torch.float32, device=device)
-        pool.index_put_((idx,), vals[sel].to(torch.float32), accumulate=True)
+        pool = torch.zeros(numel, dtype=dtype, device=device)
+        pool.index_put_((idx,), vals[sel].to(dtype), accumulate=True)
         return pool
 
     def fn(vals: torch.Tensor):
@@ -103,6 +119,7 @@ def build_coefinit_fn(layout: SolverLayout, A_pattern: sp.spmatrix, device,
         return (pool.view(layout.pool_shape),
                 scatter(vals, sel_u, flat_u).view(layout.pool_shape))
 
+    fn.dtype = dtype
     return fn
 
 
@@ -110,22 +127,29 @@ def build_coefinit_fn(layout: SolverLayout, A_pattern: sp.spmatrix, device,
 class Factors:
     """Factorization result, as tensors on one device: the factored tile
     pool (L tiles; LU: L and the combined diagonal tiles), the Uᵗ pool
-    (LU), the pivots (LDLᵗ) and the inverse diagonal tiles."""
+    (LU), the pivots (LDLᵗ, LDLᴴ) and the inverse diagonal tiles.  The
+    pool's dtype is the factors' (``dtype``); ``hermitian`` says that a
+    complex pool holds L of A = L Lᴴ or L D Lᴴ."""
 
     kind: Factorization
     layout: SolverLayout
     pool: torch.Tensor  # (npool, T, T) L (or combined LU diag) tiles
     pool_u: Optional[torch.Tensor] = None  # (npool, T, T) Ut tiles (LU)
-    d: Optional[torch.Tensor] = None  # (nbc, T) pivots (LDLᵗ)
+    d: Optional[torch.Tensor] = None  # (nbc, T) pivots (LDLᵗ, LDLᴴ)
     dinv: Optional[torch.Tensor] = None  # (nbc, T, T) inverse (unit) lower
     dinv_u: Optional[torch.Tensor] = None  # (nbc, T, T) inverse upper (LU)
     n_static_pivots: int = 0
+    hermitian: bool = False
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.pool.dtype
 
     def solve_args(self) -> tuple:
         """The tensors the kind's sweeps take (``solve.build_fwd_bwd_fns``)."""
         if self.kind == Factorization.LU:
             return (self.pool, self.pool_u, self.dinv, self.dinv_u)
-        if self.kind == Factorization.LDLT:
+        if self.kind in (Factorization.LDLT, Factorization.LDLH):
             return (self.pool, self.dinv, self.d)
         return (self.pool, self.dinv)
 
@@ -230,6 +254,10 @@ class _Level:
     # Ut-side mirror of ll (off-diagonal targets)
     schur_nd: list = dataclasses.field(default_factory=list)  # LU: the
     # Ut-side mirror of schur
+    # non-fp32 pools (_build_plain): the (ga, gb, gd, gk) index tensors of
+    # the updates into this level, and (ga, gb, gd) of LU's Ut mirror
+    inc: tuple = ()
+    inc_nd: tuple = ()
     # right-looking: the level's own updates after its TRSM
     full: list = dataclasses.field(default_factory=list)  # K3 (p_full)
     nd: list = dataclasses.field(default_factory=list)  # LU Ut mirror
@@ -239,14 +267,22 @@ class _Level:
     # block or slab plan's fallback pairs (p_fb)
 
 
+def panels(lv):
+    """(tp, tcpos, tc) of a level's panel tiles, in chunks of
+    ``_PANEL_CHUNK``."""
+    for lo in range(0, lv.tp.numel(), _PANEL_CHUNK):
+        sl = slice(lo, lo + _PANEL_CHUNK)
+        yield lv.tp[sl], lv.tcpos[sl], lv.tc[sl]
+
+
 def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
                        update_dtype=None, dense_tail=None, e2=None,
-                       fused_diag=None):
+                       fused_diag=None, dtype=torch.float32, hermitian=None):
     """The program of ``kind`` for this pattern, in place on the pools,
     where the reference donates them to its jitted program:
 
     - LLᵗ: ``fn(pool) -> pool``;
-    - LDLᵗ: ``fn(pool, eps) -> (pool, d, npiv)``;
+    - LDLᵗ, LDLᴴ: ``fn(pool, eps) -> (pool, d, npiv)``;
     - LU: ``fn(pool, pool_u, eps) -> (pool, pool_u, npiv)``;
 
     ``npiv`` the number of clamped pivots, a 0-d int32 device tensor.
@@ -271,10 +307,20 @@ def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
     ``fn.levels`` / ``fn.tail`` hold the K1 and K3 plans (right-looking:
     the K3, K5 and K6 plans); ``fn.e2_saved_flops`` counts the
     row-bounded savings against the full-tile count; ``fn.e2`` and
-    ``fn.compact`` name the schedule, ``fn.fused_diag`` the DIAG."""
+    ``fn.compact`` name the schedule, ``fn.fused_diag`` the DIAG.
+
+    ``dtype`` is the pools': float32 takes the route above; float64,
+    complex64 and complex128 take :func:`_build_plain`.  ``hermitian``
+    (default: LLᵗ and LDLᴴ, as the reference's) conjugates a complex
+    pool's transposes; LDLᴴ of a real pool is LDLᵗ."""
     kind = Factorization(kind)
-    if kind not in (Factorization.LLT, Factorization.LDLT, Factorization.LU):
-        raise NotImplementedError(f"{kind} is not ported (ROADMAP.md slice 3)")
+    if kind == Factorization.LDLH and not dtype.is_complex:
+        kind = Factorization.LDLT
+    if hermitian is None:
+        hermitian = kind in (Factorization.LLT, Factorization.LDLH)
+    if dtype != torch.float32:
+        return _build_plain(layout, device, kind, update_dtype, dense_tail,
+                            e2, fused_diag, dtype, hermitian)
     if dense_tail is not None and kind != Factorization.LLT:
         raise ValueError("the dense tail is LLᵗ only (the reference's rule)")
     mode, compact = e2_schedule(kind, update_dtype, e2)
@@ -341,12 +387,6 @@ def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
         _build_tail_factor(dense_tail, T, device, update_dtype, fused)
         if dense_tail is not None else None
     )
-
-    def panels(lv):
-        """(tp, tcpos, tc) of the level's panel tiles, in chunks."""
-        for lo in range(0, lv.tp.numel(), _PANEL_CHUNK):
-            sl = slice(lo, lo + _PANEL_CHUNK)
-            yield lv.tp[sl], lv.tcpos[sl], lv.tc[sl]
 
     def fact_llt(pool: torch.Tensor) -> torch.Tensor:
         for lv in plan:
@@ -604,17 +644,20 @@ def _build_right_looking(layout, device, kind, update_dtype, dense_tail,
     return fn
 
 
-def _build_tail_factor(dense_tail, T, device, update_dtype, fused=False):
+def _build_tail_factor(dense_tail, T, device, update_dtype, fused=False,
+                       hermitian=False):
     """Blocked right-looking Cholesky of the dense trailing block
     (reference ``tail_factor`` / ``tail_factor_blocked``): gather the tail
     tiles into one (m, m) matrix (missing upper tiles stay zero, only the
-    lower triangle is read), factor, scatter the lower tiles back.
-    Trailing updates round their operands to ``update_dtype``; upper
-    blocks accumulate the symmetric mirror and are never read back.
-    ``fused``: each diagonal block, symmetrized from its lower triangle
-    (the reference's ``_symf``), goes through K8 (``chol_inv``), which
-    gives L and L⁻¹ in one launch; else ``cholesky_ex`` and a triangular
-    solve."""
+    lower triangle is read), factor, scatter the lower tiles back, in the
+    pool's dtype.  Trailing updates round their operands to
+    ``update_dtype``; upper blocks accumulate the symmetric mirror and are
+    never read back.  ``hermitian``: a complex tail is L Lᴴ (the panel
+    solve and the trailing update conjugate; the reference keeps the tail
+    for Hermitian LLᵗ only).  ``fused``: each diagonal block, symmetrized
+    from its lower triangle (the reference's ``_symf``), goes through K8
+    (``chol_inv``), which gives L and L⁻¹ in one launch; else
+    ``cholesky_ex`` and a triangular solve."""
     q = dense_tail.q
     m = q * T
     t_p = torch.as_tensor(np.asarray(dense_tail.p_idx, np.int64), device=device)
@@ -638,13 +681,154 @@ def _build_tail_factor(dense_tail, T, device, update_dtype, fused=False):
                 break
             if not fused:
                 inv = tri_inv_batch(Lj)
-            P = A[s1:, s0:s1] @ inv[0].T
+            P = A[s1:, s0:s1] @ op_t(inv[0], hermitian)
             A[s1:, s0:s1] = P
             Pa = round_to(P, update_dtype)
-            A[s1:, s1:].addmm_(Pa, Pa.T, alpha=-1.0)
+            A[s1:, s1:].addmm_(Pa, op_t(Pa, hermitian), alpha=-1.0)
         pool[t_p] = dense[t_qi, :, t_qj, :]
 
     return tail_factor
+
+
+def _build_plain(layout, device, kind, update_dtype, dense_tail, e2,
+                 fused_diag, dtype, hermitian):
+    """The route of fp64, complex64 and complex128 pools, with the
+    signatures of :func:`build_factorize_fn`: every level left-looking
+    over ``regroup_left``'s tables, as the fp32 route, with the
+    reference's XLA functions as torch ops in place of the hand kernels
+    (the reference runs complex pools around every Pallas kernel).  Per
+    level: the updates into it (``kernels.gemm_scatter``, LDLᵗ/LDLᴴ
+    scaling a by the source columns' pivots; LU ``gemm_scatter_ab`` with b
+    from ``pool_u``, then the Uᵗ mirror), the diagonal tiles
+    (``potrf_batch``: ``cholesky_ex`` for LLᴴ and real LLᵗ, the
+    unconjugated loop for complex-symmetric LLᵗ; ``ldlt_batch``;
+    ``getrf_batch``), then the panel TRSM (``trsm_*``).  With
+    ``dense_tail`` (LLᴴ and real LLᵗ): the tail pre-pass and the blocked
+    dense Cholesky.  ``update_dtype`` rounds a real pool's operands (fp64
+    accumulates bf16 products, as the reference); a complex pool takes
+    none.  No right-looking schedule, fused DIAG or Schur column: those
+    run the fp32 kernels."""
+    if e2 not in (None, "left"):
+        raise NotImplementedError(
+            f"e2={e2!r} with a {dtype} pool: the right-looking schedules run "
+            "the fp32 kernels K3, K5 and K6 (Pallas schedules the reference "
+            "never runs on complex pools); this pool runs left-looking")
+    if fused_diag:
+        raise NotImplementedError(
+            f"fused_diag with a {dtype} pool: the fused DIAG is the fp32 "
+            "kernels K7 and K8")
+    if update_dtype is not None and dtype.is_complex:
+        raise ValueError(
+            f"update_dtype={update_dtype} with a {dtype} pool: rounding "
+            "drops the imaginary part (the reference's astype does); a "
+            "complex pool takes no update dtype")
+    herm = hermitian and dtype.is_complex
+    is_lu = kind == Factorization.LU
+    if dense_tail is not None and (kind != Factorization.LLT or (
+            dtype.is_complex and not herm)):
+        raise ValueError("the dense tail is LLᵗ or LLᴴ only (the "
+                         "reference's rule)")
+    if factored_cols(layout).size != layout.nbc:
+        raise NotImplementedError(
+            f"Schur columns with a {dtype} pool: their residue runs through "
+            "the fp32 kernel K3 (complex Schur: the reference has none; "
+            "fp64 Schur: ROADMAP.md A3b)")
+    T = layout.T
+    levels = dense_tail.levels_lo if dense_tail is not None else layout.levels
+    tail_s = dense_tail.s if dense_tail is not None else None
+    _, incoming, tail = regroup_left(levels, layout.blk_col, tail_s)
+    tens = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+    plan = []
+    for lv, (ga, gb, gd, gk, nd) in zip(levels, incoming):
+        plan.append(_Level(
+            cols=tens(lv.cols), diag=tens(lv.diag), tp=tens(lv.trsm_panel),
+            tc=tens(lv.trsm_col),
+            tcpos=tens(np.searchsorted(lv.cols, lv.trsm_col)),
+            inc=tuple(map(tens, (ga, gb, gd, gk))) if ga.size else (),
+            inc_nd=(tuple(map(tens, (ga[nd], gb[nd], gd[nd])))
+                    if is_lu and nd.any() else ()),
+        ))
+    tail_inc = (tuple(map(tens, tail[:3]))
+                if tail is not None and tail[0].size else ())
+    tail_factor = (
+        _build_tail_factor(dense_tail, T, device, update_dtype,
+                           hermitian=herm)
+        if dense_tail is not None else None
+    )
+    # the clamp threshold as the reference holds it: in the pool's precision
+    f_eps = lambda eps: float(torch.tensor(eps, dtype=dtype.to_real()))
+
+    def update(pool, inc, d=None):
+        """The updates ``inc`` = (ga, gb, gd, gk) into ``pool``, in chunks
+        (LDLᵗ/LDLᴴ: a scaled by ``d[gk]``)."""
+        ga, gb, gd, gk = inc
+        step = chunk_len(pool)
+        for lo in range(0, ga.numel(), step):
+            sl = slice(lo, lo + step)
+            gemm_scatter(pool, ga[sl], gb[sl], gd[sl], update_dtype,
+                         None if d is None else d[gk[sl]], hermitian=herm)
+
+    def fact_llt(pool: torch.Tensor) -> torch.Tensor:
+        for lv in plan:
+            if lv.inc:
+                update(pool, lv.inc)
+            L = potrf_batch(pool[lv.diag], hermitian=herm)
+            pool[lv.diag] = L
+            for tp, tcpos, _ in panels(lv):
+                pool[tp] = trsm_llt(pool[tp], L[tcpos], herm)
+        if tail_inc:
+            update(pool, tail_inc + (None,))
+        if tail_factor is not None:
+            tail_factor(pool)
+        return pool
+
+    def fact_ldlt(pool: torch.Tensor, eps: float):
+        eps = f_eps(eps)
+        d = torch.ones((layout.nbc, T), dtype=pool.dtype, device=pool.device)
+        npiv = torch.zeros((), dtype=torch.int32, device=pool.device)
+        for lv in plan:
+            if lv.inc:
+                update(pool, lv.inc, d)
+            L, dl, n = ldlt_batch(pool[lv.diag], eps, herm)
+            pool[lv.diag] = L
+            d[lv.cols] = dl
+            npiv += n
+            # L(I, J) = A(I, J) L⁻ᵗ D⁻¹ (L⁻ᴴ for LDLᴴ)
+            for tp, tcpos, tc in panels(lv):
+                pool[tp] = trsm_ldlt(pool[tp], L[tcpos], d[tc], herm)
+        return pool, d, npiv
+
+    def fact_lu(pool: torch.Tensor, pool_u: torch.Tensor, eps: float):
+        eps = f_eps(eps)
+        npiv = torch.zeros((), dtype=torch.int32, device=pool.device)
+        for lv in plan:
+            # A(I, K) -= L(I, J) U(J, K) into the L pool (b = Ut tiles),
+            # then the Ut-side mirror for off-diagonal targets
+            if lv.inc:
+                ga, gb, gd, _ = lv.inc
+                gemm_scatter_ab(pool, pool, pool_u, ga, gb, gd, update_dtype)
+            if lv.inc_nd:
+                gemm_scatter_ab(pool_u, pool_u, pool, *lv.inc_nd,
+                                update_dtype)
+            M, n = getrf_batch(pool[lv.diag], eps)
+            pool[lv.diag] = M
+            npiv += n
+            # L = A U⁻¹ and Ut = Aᵗ L⁻ᵗ
+            for tp, tcpos, _ in panels(lv):
+                pool[tp] = trsm_lu_l(pool[tp], M[tcpos])
+                pool_u[tp] = trsm_lu_u(pool_u[tp], M[tcpos])
+        return pool, pool_u, npiv
+
+    fn = {Factorization.LLT: fact_llt, Factorization.LDLT: fact_ldlt,
+          Factorization.LDLH: fact_ldlt, Factorization.LU: fact_lu}[kind]
+    fn.kind = kind
+    fn.levels = plan
+    fn.tail = tail_inc
+    fn.e2_saved_flops = 0.0
+    fn.e2, fn.compact = "left", False
+    fn.fused_diag = False
+    fn.dtype, fn.hermitian = dtype, herm
+    return fn
 
 
 def factored_cols(layout: SolverLayout) -> np.ndarray:
@@ -689,15 +873,18 @@ def build_diag_inverse_fn(layout: SolverLayout, device,
 
 def factorize(layout: SolverLayout, A_perm: sp.spmatrix, coef_fn, fact_fn,
               device, pivot_threshold: float = 1e-14) -> Factors:
-    """Host driver: coefinit on the device from the nnz values, run the
-    factorization of ``fact_fn.kind``, then one host read (reference
-    ``factorize``): the LLᵗ breakdown check, or the count of clamped
-    pivots, whose threshold is ``pivot_threshold · max|A_perm|``."""
+    """Host driver: coefinit on the device from the nnz values (cast to
+    ``coef_fn.dtype``), run the factorization of ``fact_fn.kind``, then
+    one host read (reference ``factorize``): the LLᵗ breakdown check, or
+    the count of clamped pivots, whose threshold is ``pivot_threshold ·
+    max|A_perm|``."""
     kind = fact_fn.kind
+    herm = getattr(fact_fn, "hermitian", False)
     vals = torch.as_tensor(
-        sp.coo_matrix(A_perm).data.astype(np.float32), device=device
+        sp.coo_matrix(A_perm).data.astype(np_dtype(coef_fn.dtype)),
+        device=device,
     )
-    if kind == Factorization.LDLT or kind == Factorization.LU:
+    if kind != Factorization.LLT:
         anorm = float(abs(A_perm).max()) if A_perm.nnz else 1.0
         eps = pivot_threshold * anorm
         if kind == Factorization.LU:
@@ -705,7 +892,8 @@ def factorize(layout: SolverLayout, A_perm: sp.spmatrix, coef_fn, fact_fn,
             return Factors(kind, layout, pool, pool_u=pool_u,
                            n_static_pivots=int(npiv))
         pool, d, npiv = fact_fn(coef_fn(vals), eps)
-        return Factors(kind, layout, pool, d=d, n_static_pivots=int(npiv))
+        return Factors(kind, layout, pool, d=d, n_static_pivots=int(npiv),
+                       hermitian=herm)
     pool = fact_fn(coef_fn(vals))
     cols = factored_cols(layout)
     diag_of_col = torch.as_tensor(layout.lookup(cols, cols), device=device)
@@ -716,4 +904,4 @@ def factorize(layout: SolverLayout, A_perm: sp.spmatrix, coef_fn, fact_fn,
             "not positive definite. Use Factorization.LDLT (static "
             "pivoting) or LU for indefinite or unsymmetric systems."
         )
-    return Factors(Factorization.LLT, layout, pool)
+    return Factors(Factorization.LLT, layout, pool, hermitian=herm)

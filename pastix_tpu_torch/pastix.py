@@ -1,5 +1,6 @@
-"""Top-level solver API of the port (counterpart of ``pastix_tpu/pastix.py``,
-real LLᵗ, LDLᵗ and LU).
+"""Top-level solver API of the port (counterpart of ``pastix_tpu/pastix.py``:
+LLᵗ, LLᴴ, LDLᵗ, LDLᴴ and LU in float32, float64, complex64 and
+complex128).
 
 :class:`Pastix` keeps the reference's step-by-step phases
 (``order → symbfact → analyze → factorize → solve``), new values on the
@@ -13,6 +14,12 @@ branches left out; the numeric phases run on one device through the
 port's kernels.  What is not ported
 raises ``NotImplementedError`` naming its ``ROADMAP.md`` slice; there are
 no silent fallbacks, and an error on the device propagates.
+
+The route is chosen in ``analyze`` from ``compute_dtype`` and the kind:
+an fp32 real pool runs the hand kernels (K1, K4, K2); fp64 and complex
+pools run ``numeric.factorize._build_plain`` and the per-level solve in
+their own dtype, a complex one refining on the host in complex128 (the
+reference's rule, ``pastix_tpu/pastix.py:1741-1744``).
 """
 
 from __future__ import annotations
@@ -64,6 +71,32 @@ from pastix_tpu_torch.solve import (
 
 _UPDATE_DTYPES = {None: None, "float32": torch.float32,
                   "bfloat16": torch.bfloat16}
+_COMPUTE_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+                   "complex64": torch.complex64,
+                   "complex128": torch.complex128}
+
+
+def compute_dtype(cfg: PastixConfig) -> torch.dtype:
+    """The pools' torch dtype of ``cfg.compute_dtype``."""
+    name = np.dtype(cfg.compute_dtype).name
+    if name not in _COMPUTE_DTYPES:
+        raise ValueError(f"unsupported compute_dtype {cfg.compute_dtype!r}: "
+                         f"expected one of {tuple(_COMPUTE_DTYPES)}")
+    return _COMPUTE_DTYPES[name]
+
+
+def _check_schur(cfg: PastixConfig) -> None:
+    """The Schur complement is fp32 real: its residue runs through K3."""
+    dt = compute_dtype(cfg)
+    if dt.is_complex:
+        raise NotImplementedError(
+            "pastix_tpu_torch: a Schur complement with a complex "
+            "compute_dtype; the reference has none either (its get_schur "
+            "builds S in float64)")
+    if dt != torch.float32:
+        raise _not_ported(
+            f"a Schur complement with compute_dtype={cfg.compute_dtype} "
+            "(its residue runs through the fp32 kernel K3)", "A3b")
 
 
 def _not_ported(what: str, slice_: str):
@@ -89,16 +122,16 @@ def _check_config(cfg: PastixConfig) -> None:
             "config must be a pastix_tpu_torch.config.PastixConfig, got "
             f"{type(cfg).__module__}.{type(cfg).__name__}"
         )
-    if cfg.factorization == Factorization.LDLH:
-        raise _not_ported("LDLH (Hermitian)", "slice 3")
-    if np.issubdtype(np.dtype(cfg.compute_dtype), np.complexfloating) or (
-        cfg.symmetry == Symmetry.HERMITIAN
-    ):
-        raise _not_ported("complex dtypes", "slice 3")
-    if np.dtype(cfg.compute_dtype) != np.float32:
-        raise _not_ported(f"compute_dtype={cfg.compute_dtype}", "slice 3")
+    dt = compute_dtype(cfg)
     if cfg.update_dtype not in _UPDATE_DTYPES:
         raise ValueError(f"unsupported update_dtype {cfg.update_dtype!r}")
+    if cfg.update_dtype is not None and dt.is_complex:
+        raise ValueError(
+            f"update_dtype={cfg.update_dtype!r} with compute_dtype="
+            f"{cfg.compute_dtype}: rounding drops the imaginary part (the "
+            "reference's astype does); a complex pool takes no update dtype")
+    if cfg.schur:
+        _check_schur(cfg)
     if cfg.incomplete:
         raise _not_ported("incomplete (ILU) factorization", "slice 3")
     if cfg.ooc:
@@ -139,9 +172,28 @@ class Pastix:
         if A is not None:
             self.set_matrix(A)
 
+    @property
+    def _dtype(self) -> torch.dtype:
+        return compute_dtype(self.config)
+
+    @property
+    def _kind(self) -> Factorization:
+        """The factorization that runs: LDLᴴ of a real pool is LDLᵗ."""
+        kind = self.config.factorization
+        if kind == Factorization.LDLH and not self._dtype.is_complex:
+            return Factorization.LDLT
+        return kind
+
     # ------------------------------------------------------------------
     # input
     # ------------------------------------------------------------------
+
+    def _check_values(self, values) -> None:
+        if np.iscomplexobj(values) and not self._dtype.is_complex:
+            raise ValueError(
+                f"complex values with compute_dtype="
+                f"{self.config.compute_dtype}: set compute_dtype to "
+                "complex64 or complex128")
 
     def set_matrix(self, A) -> "Pastix":
         """Accepts SparseMatrix, scipy sparse, or dense ndarray."""
@@ -150,30 +202,63 @@ class Pastix:
             self.A = A
         else:
             S = sp.csc_matrix(A)
-            if np.iscomplexobj(S.data):
-                raise _not_ported("complex matrices", "slice 3")
             sym = cfg.factorization != Factorization.LU
+            herm = self._hermitian_data(S)
             if sym and cfg.check_matrix:
                 # pastix_checkMatrix: symmetric factorizations demand a
-                # numerically symmetric matrix — fail loudly, not garbage
-                D = abs(S - S.T)
+                # numerically symmetric (or Hermitian) matrix — fail
+                # loudly, not garbage
+                D = abs(S - S.conj().T) if herm else abs(S - S.T)
                 if D.nnz and D.max() > 1e-12 * abs(S).max():
                     raise ValueError(
-                        f"matrix is not symmetric "
+                        f"matrix is not {'Hermitian' if herm else 'symmetric'} "
                         f"(max deviation = {D.max():.2e}) "
                         f"but {cfg.factorization} requires it; "
                         "use Factorization.LU for unsymmetric systems"
                     )
-            self.A = SparseMatrix.from_scipy(S, symmetric_storage=sym)
-        if np.iscomplexobj(self.A.values):
-            raise _not_ported("complex matrices", "slice 3")
+            # Hermitian data keeps full storage (the lower-triangle
+            # reconstruction in SparseMatrix transposes without conj)
+            self.A = SparseMatrix.from_scipy(S, symmetric_storage=sym and not herm)
+        self._check_values(self.A.values)
         self.report.n = self.A.n
         self.report.nnz_a = self.A.nnz
         return self
 
+    def _hermitian_data(self, S) -> bool:
+        """Complex input under a symmetric factorization kind: Hermitian
+        (API_SYM_HER) if A == A^H, else complex-symmetric (API_SYM_YES)
+        (reference ``_hermitian_data``)."""
+        cfg = self.config
+        data = getattr(S, "data", None)
+        if data is None or not np.iscomplexobj(data):
+            return False
+        if cfg.symmetry == Symmetry.HERMITIAN:
+            return True
+        if cfg.factorization == Factorization.LDLH:
+            return True
+        if cfg.symmetry == Symmetry.SYMMETRIC:
+            # auto-detect: prefer Hermitian when both hold (real diag)
+            D = abs(S - S.conj().T)
+            Dt = abs(S - S.T)
+            return (D.max() if D.nnz else 0) <= (Dt.max() if Dt.nnz else 0)
+        return False
+
+    @property
+    def _hermitian(self) -> bool:
+        """Whether the factorization conjugates (reference ``_hermitian``):
+        always for real dtypes, where it changes nothing; for complex ones
+        under LDLᴴ or ``Symmetry.HERMITIAN``, else complex-symmetric."""
+        if not self._dtype.is_complex:
+            return True
+        if self.config.factorization == Factorization.LDLH:
+            return True
+        return self.config.symmetry == Symmetry.HERMITIAN
+
     def set_schur_unknowns(self, unknowns) -> "Pastix":
         """pastix_setSchurUnknownList equivalent: these dofs are ordered
-        last and left unfactored; get_schur() returns their complement."""
+        last and left unfactored; get_schur() returns their complement.
+        A non-fp32 ``compute_dtype`` raises (``_check_schur``)."""
+        _check_schur(self.config)
         self._schur_unknowns = np.unique(np.asarray(unknowns, dtype=np.int64))
         self.config.schur = True
         return self
@@ -420,16 +505,27 @@ class Pastix:
         tiles, else the per-level solve (``solve.build_solve_fn``), which
         needs no inverses; with ``device_refine`` and ``fast_solve`` and a
         refinement method, the device loop of ``krylov`` refines, else the
-        host loop of ``refine`` with the device solve as M⁻¹."""
+        host loop of ``refine`` with the device solve as M⁻¹.
+
+        The pools' dtype (``compute_dtype``) picks the route: fp32 real
+        runs the hand kernels as above; fp64, complex64 and complex128
+        run ``numeric.factorize._build_plain`` and the per-level solve in
+        their dtype, with or without ``fast_solve`` (the reference's
+        inverse-tile solve is not ported).  A real fp64 pool refines in
+        the device loop under the same flags, the per-level solve as M⁻¹;
+        a complex pool refines on the host, in complex128.  The dense tail
+        is LLᵗ or LLᴴ (not complex-symmetric LLᵗ)."""
         cfg = self.config
         if self.symbol_ is None:
             self.symbfact()
         t0 = time.perf_counter()
         dev = self.device
-        kind = cfg.factorization
+        kind, dt, herm = self._kind, self._dtype, self._hermitian
+        plain = dt != torch.float32
+        itemsize = dt.itemsize
         is_lu = kind == Factorization.LU
         use_tail = (cfg.dense_tail and self._schur_first_bcol is None
-                    and kind == Factorization.LLT)
+                    and kind == Factorization.LLT and herm)
         layout_path = os.path.join(cfg.io_dir, "layoutname")
         if cfg.io_strategy == IOStrategy.LOAD and os.path.exists(
             layout_path + ".npz"
@@ -449,7 +545,7 @@ class Pastix:
                 self.layout.save(layout_path)
         lay = self.layout
         T = lay.T
-        pool_bytes = lay.npool * T * T * 4 * (2 if is_lu else 1)
+        pool_bytes = lay.npool * T * T * itemsize * (2 if is_lu else 1)
         free = self._free_device_bytes()
         if free is not None and pool_bytes > free:
             raise _not_ported(
@@ -464,32 +560,34 @@ class Pastix:
             # memory (the reference assumed a 13 GB budget)
             m_cap = 1 << 15
             if free is not None:
-                room = max(free - pool_bytes, (4 * T) ** 2 * 3 * 4)
-                m_cap = min(m_cap, int(np.sqrt(room / (3 * 4))))
+                room = max(free - pool_bytes, (4 * T) ** 2 * 3 * itemsize)
+                m_cap = min(m_cap, int(np.sqrt(room / (3 * itemsize))))
             self._dense_tail = plan_dense_tail(lay, max_m=m_cap)
         upd = _UPDATE_DTYPES[cfg.update_dtype]
-        self._coef_fn = build_coefinit_fn(lay, self._A_perm, dev, for_lu=is_lu)
+        self._coef_fn = build_coefinit_fn(lay, self._A_perm, dev,
+                                          for_lu=is_lu, dtype=dt)
         self._fact_fn = build_factorize_fn(
-            lay, dev, kind, update_dtype=upd, dense_tail=self._dense_tail
+            lay, dev, kind, update_dtype=upd, dense_tail=self._dense_tail,
+            dtype=dt, hermitian=herm,
         )
-        if cfg.fast_solve:
+        if cfg.fast_solve and not plain:
             self._dinv_fn = build_diag_inverse_fn(lay, dev, kind)
             self._fwd_fn, self._bwd_fn = build_fwd_bwd_fns(lay, dev, kind)
             self._solve_fn = build_solve_fn_sweep(lay, dev, kind,
                                                   self._fwd_fn.plan)
         else:
-            # the per-level solve: no inverse diagonal tiles (nbc T² fp32
-            # of device memory saved, twice on LU), no K2
+            # the per-level solve: no inverse diagonal tiles (nbc T² of
+            # device memory saved, twice on LU), no K2
             self._dinv_fn = None
-            self._fwd_fn, self._bwd_fn = build_level_fwd_bwd_fns(lay, dev,
-                                                                 kind)
-            self._solve_fn = build_solve_fn(lay, dev, kind)
+            self._fwd_fn, self._bwd_fn = build_level_fwd_bwd_fns(
+                lay, dev, kind, dt, herm)
+            self._solve_fn = build_solve_fn(lay, dev, kind, dt, herm)
         self._refine_fn = self._ell = None
-        if (cfg.device_refine and cfg.fast_solve
+        if (cfg.device_refine and cfg.fast_solve and not dt.is_complex
                 and cfg.refinement != RefinementMethod.NONE):
             self._refine_fn = build_device_refine_fn(
                 lay, self._solve_fn, method=cfg.refinement,
-                restart=cfg.gmres_restart,
+                restart=cfg.gmres_restart, dtype=dt,
             )
             self._ell = self._device_ell()
         self.report.analyze_time = time.perf_counter() - t0
@@ -512,8 +610,9 @@ class Pastix:
             self.report.padding_waste = (
                 self.report.fact_flops_padded / self.report.fact_flops - 1.0
             )
-        self.report.memory_bytes = lay.memory_bytes(dtype_bytes=4, lu=is_lu)
-        self.report.memory_terms = self.report.memory_bytes // 4
+        self.report.memory_bytes = lay.memory_bytes(dtype_bytes=itemsize,
+                                                    lu=is_lu)
+        self.report.memory_terms = self.report.memory_bytes // itemsize
         if cfg.verbosity >= Verbosity.YES:
             print(
                 f"[pastix-tpu-torch] analyze: T={T} tiles={lay.npool} "
@@ -542,8 +641,7 @@ class Pastix:
         values = np.asarray(values)
         if values.shape[0] != self.A.nnz:
             raise ValueError("values length must match nnz of the pattern")
-        if np.iscomplexobj(values):
-            raise _not_ported("complex matrices", "slice 3")
+        self._check_values(values)
         old = self._A_perm
         self.A = SparseMatrix(
             self.A.n, self.A.colptr, self.A.rowind, values,
@@ -629,8 +727,8 @@ class Pastix:
 
     def _raw_solve_ext(self, b_ext: np.ndarray) -> np.ndarray:
         """The factored solve, no refinement, of a host vector or block in
-        the extended permuted order, through the device (fp32 there,
-        fp64 back): the host loop's M⁻¹."""
+        the extended permuted order, through the device (in the pools'
+        dtype there, fp64 or complex128 back): the host loop's M⁻¹."""
         return run_host(self.factors, b_ext, self._solve_fn)
 
     def _device_solve_refined(self, b_ext: np.ndarray):
@@ -659,10 +757,15 @@ class Pastix:
         does (``pastix.py:1711-1771``).  Otherwise the host loop refines
         the factored solve's result.  ``report.refine_iters`` counts the
         device and the host steps; ``report.residual`` is the host fp64
-        ``||b - Ax|| / ||b||`` in the permuted order."""
+        ``||b - Ax|| / ||b||`` in the permuted order; a complex pool's
+        residuals are complex128.  A complex ``b`` needs a complex
+        ``compute_dtype``."""
         cfg = self.config
-        if np.iscomplexobj(np.asarray(b)):
-            raise _not_ported("complex right-hand sides", "slice 3")
+        if np.iscomplexobj(np.asarray(b)) and not self._dtype.is_complex:
+            raise ValueError(
+                "a complex right-hand side with compute_dtype="
+                f"{cfg.compute_dtype}: set compute_dtype to complex64 or "
+                "complex128")
         if self._schur_unknowns is not None:
             raise ValueError(
                 "Schur unknowns are set: their columns are not factored; "
@@ -689,7 +792,8 @@ class Pastix:
         if host_loop:
             t0 = time.perf_counter()
             rdt = np.result_type(
-                np.dtype(cfg.residual_dtype), Ap.dtype, b_ext.dtype
+                np.dtype(cfg.residual_dtype), Ap.dtype, b_ext.dtype,
+                np.dtype(cfg.compute_dtype),
             ).type
             res = refine_fn(
                 lambda v: Ap @ v, self._raw_solve_ext, b_ext, x_ext,
@@ -870,12 +974,17 @@ def pastix(n: int, colptr: np.ndarray, rowind: np.ndarray, values: np.ndarray,
     """Array-style API mirroring the reference's pastix() signature
     (src/sopalin/src/pastix.c).  Returns (x, report); ``x`` is None unless
     the phase window (``start_task`` .. ``end_task``) holds SOLVE.
-    ``device`` as :class:`Pastix`'s."""
+    ``device`` as :class:`Pastix`'s.  Complex values under
+    ``Symmetry.HERMITIAN`` or LDLᴴ are taken in full storage (the
+    reference keeps the lower triangle and mirrors it unconjugated)."""
     config = config or PastixConfig()
     sym = config.factorization != Factorization.LU
+    herm = np.iscomplexobj(values) and (
+        config.symmetry == Symmetry.HERMITIAN
+        or config.factorization == Factorization.LDLH)
     A = check_matrix(
         n, colptr, rowind, values, base=base,
-        symmetric_storage=sym,
+        symmetric_storage=sym and not herm,
         symmetrize_pattern=not sym,
     )
     solver = Pastix(A, config, device=device)

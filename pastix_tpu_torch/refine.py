@@ -377,7 +377,7 @@ def _gmres(matvec, precond, b, x, bnorm, eps, itermax, m, dtype):
             g[k + 1] = -np.conj(sn[k]) * g[k]
             g[k] = cs[k] * g[k]
             it += 1
-            res = abs(float(g[k + 1])) / bnorm
+            res = abs(g[k + 1]) / bnorm  # |.| of a complex estimate too
             hist.append(res)
             if res <= eps or it >= itermax:
                 break

@@ -1,6 +1,7 @@
 """Triangular solve (PyTorch counterpart of ``pastix_tpu/solve.py``: the
-real LLᵗ, LDLᵗ and LU branches of ``build_solve_fn_sweep``,
-``build_fwd_bwd_fns`` and the per-level ``build_solve_fn``).
+fp32 real LLᵗ, LDLᵗ and LU branches of ``build_solve_fn_sweep`` and
+``build_fwd_bwd_fns``, and the per-level ``build_solve_fn`` in every
+dtype, LLᴴ and LDLᴴ included).
 
 ``rhs_to_blocks`` / ``blocks_to_rhs`` are verbatim copies of the host
 helpers in ``pastix_tpu/solve.py`` (that module imports JAX).
@@ -13,6 +14,7 @@ import torch
 
 from pastix_tpu_torch.analyze.layout import SolverLayout
 from pastix_tpu_torch.config import Factorization
+from pastix_tpu_torch.numeric.kernels import np_dtype, op_t
 from pastix_tpu_torch.numeric.sweep_kernels import (
     _from_rowvec, _to_rowvec, sweep_bwd, sweep_fwd, sweep_plan,
 )
@@ -85,13 +87,16 @@ def build_fwd_bwd_fns(layout: SolverLayout, device, kind=Factorization.LLT,
 
 
 def run_host(factors, v_perm: np.ndarray, fn) -> np.ndarray:
-    """Apply a sweep of :func:`build_fwd_bwd_fns` to a host (n, [R])
-    permuted vector through the device (fp32 there; the result comes back
-    as fp64): the counterpart of the reference's ``run_fwd`` and
+    """Apply a sweep of :func:`build_fwd_bwd_fns` (or a solve) to a host
+    (n, [R]) permuted vector through the device (in the pool's dtype
+    there; the result comes back as fp64, or complex128 for a complex
+    pool): the counterpart of the reference's ``run_fwd`` and
     ``run_bwd``."""
     lay, pool = factors.layout, factors.pool
-    vb = torch.as_tensor(rhs_to_blocks(lay, v_perm), device=pool.device)
-    y = fn(*factors.solve_args(), vb).to(torch.float64).cpu().numpy()
+    vb = torch.as_tensor(rhs_to_blocks(lay, v_perm, np_dtype(pool.dtype)),
+                         device=pool.device)
+    host = torch.complex128 if pool.dtype.is_complex else torch.float64
+    y = fn(*factors.solve_args(), vb).to(host).cpu().numpy()
     out = blocks_to_rhs(lay, y)
     return out if np.asarray(v_perm).ndim > 1 else out[:, 0]
 
@@ -122,17 +127,21 @@ _LEVEL_CHUNK = 4096
 
 
 def build_level_fwd_bwd_fns(layout: SolverLayout, device,
-                            kind=Factorization.LLT):
-    """The per-level sweeps of ``fast_solve=False`` (reference
-    ``_fwd_level``/``_bwd_level``, ``pastix_tpu/solve.py:98-176``), with
-    the signatures of :func:`build_fwd_bwd_fns`: ``fwd(*factors, b)`` and
-    ``bwd(*factors, y)`` on a float32 (nbc, T, R) block RHS, ``factors``
-    the kind's ``Factors.solve_args``, whose inverse diagonal tiles are
-    not read (``None`` when the factorization made none).
+                            kind=Factorization.LLT, dtype=torch.float32,
+                            hermitian=None):
+    """The per-level sweeps of ``fast_solve=False`` and of every pool but
+    fp32 real (reference ``_fwd_level``/``_bwd_level``,
+    ``pastix_tpu/solve.py:98-176``), with the signatures of
+    :func:`build_fwd_bwd_fns`: ``fwd(*factors, b)`` and ``bwd(*factors,
+    y)`` on a (nbc, T, R) block RHS, computed in ``dtype`` (the pool's),
+    ``factors`` the kind's ``Factors.solve_args``, whose inverse diagonal
+    tiles are not read (``None`` when the factorization made none).
+    ``hermitian`` (default: LLᵗ and LDLᴴ, as the reference's) makes a
+    complex pool's backward sweep read Lᴴ.
 
     A level's diagonal tiles go through one batched
     ``torch.linalg.solve_triangular`` (lower, unit lower for LDLᵗ and LU;
-    backward Lᵗ, or LU's upper triangle), its off-diagonal tiles through
+    backward Lᵗ or Lᴴ, or LU's upper triangle), its off-diagonal tiles through
     a batched matmul and ``index_add_``, in chunks of ``_LEVEL_CHUNK``
     tiles.  Every level of the layout is swept, the dense tail's columns
     included: the port keeps their factored tiles in the pool, where the
@@ -141,6 +150,9 @@ def build_level_fwd_bwd_fns(layout: SolverLayout, device,
     their diagonal, and the backward sweep reads them and never writes
     them."""
     kind = Factorization(kind)
+    if hermitian is None:
+        hermitian = kind in (Factorization.LLT, Factorization.LDLH)
+    herm = hermitian and dtype.is_complex
     unit = kind != Factorization.LLT
     lu = kind == Factorization.LU
     tab = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
@@ -163,44 +175,47 @@ def build_level_fwd_bwd_fns(layout: SolverLayout, device,
     def bwd_sweep(pool_contrib, pool_diag, x):
         for cols, diag, tp, tr, tc in reversed(plan):
             for p, r, c in chunks(tp, tr, tc):
-                x.index_add_(0, c, torch.bmm(pool_contrib[p].transpose(1, 2),
+                x.index_add_(0, c, torch.bmm(op_t(pool_contrib[p], herm),
                                              x[r]), alpha=-1.0)
             D = pool_diag[diag]
             x[cols] = (torch.linalg.solve_triangular(D, x[cols], upper=True)
                        if lu else torch.linalg.solve_triangular(
-                           D.transpose(1, 2), x[cols], upper=True,
+                           op_t(D, herm), x[cols], upper=True,
                            unitriangular=unit))
         return x
 
+    own = lambda b: b.to(dtype, copy=True)
     if lu:
         def fwd(pool, pool_u, dinv, dinv_u, b):
-            return fwd_sweep(pool, b.to(torch.float32, copy=True))
+            return fwd_sweep(pool, own(b))
 
         def bwd(pool, pool_u, dinv, dinv_u, y):
-            return bwd_sweep(pool_u, pool, y.to(torch.float32, copy=True))
-    elif kind == Factorization.LDLT:
+            return bwd_sweep(pool_u, pool, own(y))
+    elif kind in (Factorization.LDLT, Factorization.LDLH):
         def fwd(pool, dinv, d, b):
-            return fwd_sweep(pool, b.to(torch.float32, copy=True)).div_(
-                d[:, :, None])
+            return fwd_sweep(pool, own(b)).div_(d[:, :, None])
 
         def bwd(pool, dinv, d, y):
-            return bwd_sweep(pool, pool, y.to(torch.float32, copy=True))
+            return bwd_sweep(pool, pool, own(y))
     else:
         def fwd(pool, dinv, b):
-            return fwd_sweep(pool, b.to(torch.float32, copy=True))
+            return fwd_sweep(pool, own(b))
 
         def bwd(pool, dinv, y):
-            return bwd_sweep(pool, pool, y.to(torch.float32, copy=True))
+            return bwd_sweep(pool, pool, own(y))
     return fwd, bwd
 
 
-def build_solve_fn(layout: SolverLayout, device, kind=Factorization.LLT):
-    """The per-level solve of ``fast_solve=False`` (reference
-    ``build_solve_fn``, ``pastix_tpu/solve.py:187``): ``fn(*factors, b)
-    -> x`` as :func:`build_solve_fn_sweep`'s, the forward then the
-    backward sweep of :func:`build_level_fwd_bwd_fns`.  It reads no
-    inverse diagonal tiles and launches no K2."""
-    fwd, bwd = build_level_fwd_bwd_fns(layout, device, kind)
+def build_solve_fn(layout: SolverLayout, device, kind=Factorization.LLT,
+                   dtype=torch.float32, hermitian=None):
+    """The per-level solve of ``fast_solve=False`` and of every pool but
+    fp32 real (reference ``build_solve_fn``, ``pastix_tpu/solve.py:187``):
+    ``fn(*factors, b) -> x`` as :func:`build_solve_fn_sweep`'s, the
+    forward then the backward sweep of :func:`build_level_fwd_bwd_fns` in
+    ``dtype``, conjugated as ``hermitian`` says.  It reads no inverse
+    diagonal tiles and launches no K2."""
+    fwd, bwd = build_level_fwd_bwd_fns(layout, device, kind, dtype,
+                                       hermitian)
 
     def fn(*args):
         *factors, b = args

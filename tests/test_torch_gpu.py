@@ -15,7 +15,11 @@ solves to a residual of 1e-10; the device refinement loops on the card
 against the same loops on the CPU (iterations within 1, solutions within
 1e-9), new values through ``factorize(values)`` against a fresh solver
 (equal pools and iterations), and the per-level solve of
-``fast_solve=False`` against K2's solve on the same factors (1e-5).
+``fast_solve=False`` against K2's solve on the same factors (1e-5); the
+complex64 pools and unrefined solutions of ``chip_smoke.py`` phase 17 at
+24³ against the CPU's (1e-4), a complex64 ``bmm`` under
+``pin_precision`` against complex128 (1e-5), and fp64 pools against the
+CPU's (1e-10).
 """
 
 import dataclasses
@@ -1092,3 +1096,58 @@ def test_level_solve_on_cuda_matches_k2(cuda, kind):
                                                Factorization[kind]))
     assert SW.run_sweep.launches > k2
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+# ----------------------------------------------------------------------
+# complex and fp64 pools (torch ops on the card, no hand kernel)
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["llh", "ldlt-helmholtz", "llt-helmholtz"])
+def test_complex64_on_cuda_matches_cpu(cuda, case):
+    """chip_smoke phase 17's card-only check at 24³: the complex64 pool
+    and the unrefined solution of the same solver on the card and on the
+    CPU within 1e-4 max|cpu| (TF32 or another device-side precision
+    switch in complex bmm would show); no hand kernel launches."""
+    import chip_smoke as CS
+
+    M, cfg = {
+        "llh": lambda: (CS.herm_3d(24), CS.precision_cfg("complex64",
+                                                         herm=True)),
+        "ldlt-helmholtz": lambda: (CS.helmholtz_3d(24),
+                                   CS.precision_cfg("complex64", "LDLT")),
+        "llt-helmholtz": lambda: (CS.helmholtz_3d(24),
+                                  CS.precision_cfg("complex64", "LLT")),
+    }[case]()
+    CS.reset_counts()
+    pool_err, x_err = CS.card_matches_cpu(M, cfg, cuda)
+    assert max(pool_err, x_err) <= CS.TOL_CARD, (pool_err, x_err)
+    assert not any(fn.launches or fn.twin_launches
+                   for fn in CS.counters().values())
+
+
+def test_complex64_bmm_pinned_is_fp32(cuda):
+    """A complex64 bmm under ``pin_precision`` (TF32 asked for outside
+    it) agrees with complex128 to fp32 rounding."""
+    import chip_smoke as CS
+
+    assert CS.bmm_pinned_error(cuda) <= CS.TOL_BMM
+
+
+@pytest.mark.parametrize("kind", ["LLT", "LDLT", "LU"])
+def test_float64_on_cuda_matches_cpu(cuda, kind):
+    """An fp64 pool on the card against the CPU's: pools within 1e-10
+    max|cpu|, refined solutions to 1e-10, the device loop on both."""
+    A = (convection_diffusion_3d(10) if kind == "LU" else poisson_3d(10))
+    b = A.to_scipy() @ np.ones(A.n)
+    out = []
+    for d in (cuda, "cpu"):
+        s = Pastix(A, PastixConfig(tile_size=32, compute_dtype="float64",
+                                   factorization=Factorization[kind]),
+                   device=d)
+        x = s.solve(b)
+        assert s._refine_fn is not None and s.report.residual <= 1e-10
+        out.append((s.factors.pool.cpu().numpy(), x))
+    (p1, x1), (p0, x0) = out
+    assert np.abs(p1 - p0).max() <= 1e-10 * np.abs(p0).max()
+    assert np.abs(x1 - x0).max() <= 1e-9

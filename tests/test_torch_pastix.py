@@ -139,27 +139,50 @@ def test_spsolve_block_rhs():
     assert _rel(got, X) <= 1e-9
 
 
-@pytest.mark.parametrize("kind", [
-    dict(factorization=Factorization.LDLH),
-    dict(factorization=Factorization.LU, compute_dtype="complex64"),
-])
-def test_unported_kinds_raise(kind):
-    """Real LDLᵗ and LU are ported (slice 2); LDLᴴ and complex LU are
-    slice 3."""
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        Pastix(poisson_3d(4), PastixConfig(**kind), device="cpu")
+def _plain_fn(**kw):
+    """An fp64 LLᵗ program of poisson_3d(4), T=16, with ``kw``."""
+    from pastix_tpu_torch.numeric.factorize import build_factorize_fn
+
+    s = Pastix(poisson_3d(4), PastixConfig(tile_size=16), device="cpu")
+    s.analyze()
+    return build_factorize_fn(s.layout, "cpu", Factorization.LLT,
+                              dtype=torch.float64, **kw)
+
+
+@pytest.mark.parametrize("make,exc,match", [
+    (lambda: Pastix(poisson_3d(4), PastixConfig(
+        compute_dtype="complex64", schur=True), device="cpu"),
+     NotImplementedError, "reference has none"),
+    (lambda: Pastix(poisson_3d(4), PastixConfig(
+        compute_dtype="float64", schur=True), device="cpu"),
+     NotImplementedError, "ROADMAP.md A3b"),
+    (lambda: Pastix(poisson_3d(4), PastixConfig(
+        compute_dtype="complex64", update_dtype="bfloat16"), device="cpu"),
+     ValueError, "imaginary part"),
+    (lambda: _plain_fn(e2="stream"), NotImplementedError, "right-looking"),
+    (lambda: _plain_fn(fused_diag=True), NotImplementedError, "K7 and K8"),
+], ids=["kind0", "kind1", "kind2", "kind3", "kind4"])
+def test_unported_kinds_raise(make, exc, match):
+    """Every kind and dtype is ported (LDLᴴ and the complex and fp64
+    pools since A3 was ported); what still raises: complex Schur (the
+    reference has none), fp64 Schur (A3b), a complex pool with an update
+    dtype, and a non-fp32 pool with a right-looking or fused-diagonal
+    schedule (the fp32 kernels' schedules)."""
+    with pytest.raises(exc, match=match):
+        make()
 
 
 @pytest.mark.parametrize("cfg,taken", [
-    (dict(compute_dtype="complex64"), False), (dict(mesh_shape=(2,)), False),
+    (dict(compute_dtype="complex64"), True), (dict(mesh_shape=(2,)), False),
     (dict(ooc=True), False), (dict(incomplete=True), False),
     (dict(refinement=RefinementMethod.GMRES), True),
-    (dict(schur=True, factorization=Factorization.LDLH), False),
+    (dict(schur=True, factorization=Factorization.LDLH), True),
 ], ids=["complex", "mesh", "ooc", "ilu", "gmres", "schur"])
 def test_unported_options_raise(cfg, taken):
-    """The schur case: Schur under LDLᴴ is slice 3 (LLᵗ, LDLᵗ and LU
-    Schur are ported).  The gmres case is taken since the refinement
-    methods were ported (A4): it solves."""
+    """The complex case is taken since A3 was ported (a complex64 pool solves
+    the real matrix), and so is the schur case (LDLᴴ of a real pool is
+    LDLᵗ, whose Schur path is ported).  The gmres case is taken since the
+    refinement methods were ported (A4): it solves."""
     if not taken:
         with pytest.raises(NotImplementedError, match="ROADMAP.md slice"):
             Pastix(poisson_3d(4), PastixConfig(**cfg), device="cpu")
@@ -347,13 +370,17 @@ def test_solve_leaves_callers_tf32_switches():
 
 
 def test_schur_unknowns_raise():
-    """Schur unknowns under LDLᴴ name slice 3; under LLᵗ, LDLᵗ and LU
-    they are taken."""
-    with pytest.raises(NotImplementedError, match="LDLH.*slice 3"):
-        Pastix(poisson_3d(4), PastixConfig(factorization=Factorization.LDLH,
-                                           schur=True),
-               device="cpu").set_schur_unknowns([0, 1])
-    for kind in (Factorization.LLT, Factorization.LDLT, Factorization.LU):
+    """Schur unknowns with a complex pool raise (the reference has no
+    complex Schur), with an fp64 pool they name A3b; under LLᵗ, LDLᵗ, LU
+    and LDLᴴ (of a real pool: LDLᵗ) they are taken."""
+    for dt, match in (("complex64", "reference has none"),
+                      ("float64", "ROADMAP.md A3b")):
+        s = Pastix(poisson_3d(4), PastixConfig(compute_dtype=dt),
+                   device="cpu")
+        with pytest.raises(NotImplementedError, match=match):
+            s.set_schur_unknowns([0, 1])
+    for kind in (Factorization.LLT, Factorization.LDLT, Factorization.LU,
+                 Factorization.LDLH):
         s = Pastix(poisson_3d(4), PastixConfig(factorization=kind),
                    device="cpu")
         assert s.set_schur_unknowns([1, 0, 1]) is s and s.config.schur
