@@ -202,6 +202,37 @@ prints the final ``ok`` line:
    against the same solvers on the CPU (1e-4 max|cpu|), and a complex64
    ``bmm`` under ``pin_precision`` against complex128 (1e-5); the phase's
    seconds are logged;
+18. ILU(k) and the packed E2 path (ROADMAP A5, A7), T=128, each run
+   analyzed, factorized twice (the second timed) and solved twice (the
+   second timed), its counts read after the factorizations and again
+   after the solves, residual <= 1e-10 in the host's fp64: (a) block
+   ILU(0) and ILU(1) LLᵗ on ``poisson_3d(--nx)``, bf16 updates, GMRES
+   (the config's auto-upgrade), ``refinement_itermax=400``: K1 and K2
+   launched, no twin, no dense tail; device and host steps, the tile
+   count beside the complete layout's (phase 4), peak memory; then the
+   ILU(0) factors as ``as_preconditioner`` under
+   ``scipy.sparse.linalg.gmres`` to 1e-10; (b) block ILU(1) LU on
+   ``convection_diffusion_3d(--lu-nx)``: K1, K4 and K2 launched; after
+   each block ILU run, with the counts reset, K1 on the busiest level of
+   its incomplete layout (each pool side of LU) against its twin
+   (``TOL_E2``, a second run bit-identical) and K2 forward and backward
+   on its factors against its twin (``TOL_K2``, one launch a direction,
+   a second run bit-identical); (c)
+   scalar ILU(1) on ``poisson_3d(24)`` and on
+   ``convection_diffusion_3d(16)`` LU: host factors, no device program,
+   no hand kernel launched, the host seconds logged; (d) packed LLᵗ on
+   ``poisson_3d(--nx)`` (dense tail, bf16 updates), shift-invert LDLᵗ on
+   phase 8's matrix (fp32 updates) and LU on
+   ``convection_diffusion_3d(--lu-nx)`` (bf16): no K1 or K3 in the
+   factorizations, K4 on LDLᵗ and LU, K2 in the solves; ``fact_ms``,
+   useful GFLOP/s, steps, residual and peak memory beside the
+   left-looking figures of phases 4, 7 and 8, and the packed plan's GEMM
+   and TRSM flops beside the grid's padded count; (e) at 24³: packed
+   with the plane z = 23 as Schur unknowns, ``get_schur`` against the
+   sparse-LU S (1e-4 max|S|, fp32 updates, no K1 or K3), and, on the card
+   only, a complex64 LLᴴ packed solver's pool and unrefined solution
+   against the same solver on the CPU (1e-4 max|cpu|); the phase's
+   seconds are logged;
 
 then the card's nvidia-smi line, one JSON line of the kernels (each
 variant on its own line of the list, ``launches`` from the path that runs
@@ -2649,6 +2680,228 @@ def precision_path(nx, lu_nx, dev):
     return runs
 
 
+def phase18_run(label, M, cfg, dev, need_fact=(), forbid_fact=(),
+                need_solve=("K2",), forbid_solve=()):
+    """One run of phase 18 on the scipy matrix ``M``: analyze, factorize
+    twice (the second timed), the counts read (``need_fact`` launched,
+    ``forbid_fact`` not, no twin); then solve b = M 1 twice (the second
+    timed), the counts read again (``need_solve`` launched).  Residual
+    <= 1e-10 in the host's fp64.  Returns (solver, figures)."""
+    import torch
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    s, t = analyzed(M, cfg, dev)
+    fact = []
+    for _ in range(2):
+        s.factorize()
+        fact.append(s.report.fact_time * 1e3)
+    fl = read_counts(f"{label}: factorize x2", need_fact, forbid_fact)
+    b = M @ np.ones(M.shape[0])
+    reset_counts()
+    s.solve(b)
+    rec = instrument(s)
+    x = s.solve(b)
+    sl = read_counts(f"{label}: solve x2", need_solve, forbid_solve)
+    res = float(np.linalg.norm(b - M @ x) / np.linalg.norm(b))
+    lay = s.layout
+    num = {
+        "n": int(M.shape[0]), "analysis_s": sum(t.values()),
+        "fact_ms": fact, "fact_flops": s.report.fact_flops,
+        "gflops": s.report.fact_flops / fact[1] / 1e6,
+        "solve_ms": s.report.solve_time * 1e3,
+        "refine_ms": s.report.refine_time * 1e3,
+        "steps": s.report.refine_iters, "device_steps": rec["dev_iters"],
+        "host_steps": s.report.refine_iters - rec["dev_iters"],
+        "residual": s.report.residual, "residual_original_order": res,
+        "static_pivots": s.report.static_pivots,
+        "npool": lay.npool if lay is not None else None,
+        "levels": s.report.n_levels if lay is not None else None,
+        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                     if cuda else None),
+        "launches_fact": {k: v for k, v in fl.items() if v},
+        "launches_solve": {k: v for k, v in sl.items() if v},
+    }
+    log(f"ilu/packed {label}: " + json.dumps(num))
+    if x.shape != (M.shape[0],) or not np.isfinite(x).all():
+        raise AssertionError(f"{label}: the solution is not finite")
+    if not max(res, s.report.residual) <= TOL_RES:
+        raise AssertionError(f"{label}: residual {res:.3e} above {TOL_RES}")
+    return s, num
+
+
+def ilu_twins(s, label, errs, k1key, k2key):
+    """K1 on the busiest level of the block ILU solver ``s`` and K2 on
+    its factors against their twins, on the plans its incomplete layout
+    gives them; the counts are reset first, so these launches stay out of
+    the path's.  max|d| to ``errs[k1key]`` and ``errs[k2key]``."""
+    reset_counts()
+    lv = busiest_level(s._fact_fn)
+    if not lv.ll:
+        raise AssertionError(f"{label}: no K1 chunks on its busiest level")
+    check_lists(check_k1, k1_lists(s, lv), f"{label} busiest level", errs,
+                k1key, upd_of(s))
+    errs[k2key] = max(errs[k2key], check_k2(s, 1, seed=18))
+
+
+def ilu_packed_path(nx, lu_nx, ldlt_nx, dev, left, errs):
+    """Phase 18: block ILU(k) on the card, scalar ILU(k) on the host and
+    the packed E2 path at full width (see the module docstring); ``left``
+    the left-looking figures of phases 4, 7 and 8 by kind; the block ILU
+    runs' K1 and K2 errors against their twins go to ``errs``.  Returns
+    the runs' figures by label."""
+    import gc
+    import inspect
+
+    import scipy.sparse.linalg as spla
+    from pastix_tpu_torch.config import Factorization, PastixConfig
+    from pastix_tpu_torch.generators import convection_diffusion_3d, poisson_3d
+
+    t_phase = time.perf_counter()
+    runs = {}
+    everything = tuple(counters())
+
+    def cfg(kind="LLT", upd="bfloat16", **kw):
+        return PastixConfig(tile_size=128, update_dtype=upd,
+                            factorization=Factorization[kind], **kw)
+
+    def ilu(k, grain="block"):
+        return dict(incomplete=True, level_of_fill=k, ilu_grain=grain,
+                    refinement_itermax=400, refinement_eps=TOL_RES)
+
+    # (a) block ILU(0) and ILU(1), LLᵗ, GMRES (the auto-upgrade)
+    P = poisson_3d(nx).to_scipy().tocsc()
+    b = P @ np.ones(P.shape[0])
+    for k in (0, 1):
+        gc.collect()
+        label = f"block ILU({k}) LLT poisson_3d({nx})"
+        s, num = phase18_run(label, P, cfg(**ilu(k)), dev, ("K1",))
+        num["npool_complete"] = left["LLT"]["tiles"]
+        log(f"  {label}: npool {num['npool']} (complete layout "
+            f"{num['npool_complete']}), refinement "
+            f"{s.config.refinement.name}, {num['device_steps']} device + "
+            f"{num['host_steps']} host steps")
+        if s.config.refinement.name != "GMRES" or s._dense_tail is not None:
+            raise AssertionError(f"{label}: not GMRES, or a dense tail")
+        ilu_twins(s, label, errs, "K1", "K2")
+        if k == 0:
+            # the factors as M under scipy's GMRES
+            op = s.as_preconditioner()
+            steps = [0]
+            tol = ("rtol" if "rtol" in inspect.signature(spla.gmres)
+                   .parameters else "tol")
+            t0 = time.perf_counter()
+            xs, info = spla.gmres(P, b, M=op, atol=0.0, restart=30,
+                                  maxiter=20, callback_type="pr_norm",
+                                  callback=lambda _: steps.__setitem__(
+                                      0, steps[0] + 1), **{tol: TOL_RES})
+            res = float(np.linalg.norm(b - P @ xs) / np.linalg.norm(b))
+            num["scipy_gmres"] = {
+                "steps": steps[0], "info": int(info), "residual": res,
+                "ms": (time.perf_counter() - t0) * 1e3}
+            log(f"  {label} as_preconditioner under scipy gmres: "
+                + json.dumps(num["scipy_gmres"]))
+            if info != 0 or not res <= TOL_RES:
+                raise AssertionError("scipy gmres with the ILU(0) "
+                                     f"preconditioner did not reach {TOL_RES}")
+            del op
+        runs[label] = num
+        del s
+    # (b) block ILU(1), LU
+    gc.collect()
+    C = convection_diffusion_3d(lu_nx).to_scipy().tocsc()
+    label = f"block ILU(1) LU convection_diffusion_3d({lu_nx})"
+    s, runs[label] = phase18_run(label, C, cfg("LU", **ilu(1)), dev,
+                                 ("K1", "K4"))
+    ilu_twins(s, label, errs, "K1x", "K2lu")
+    del C, s
+    # (c) scalar ILU(1) on the host: no device program, no hand kernel
+    for label, M, kind in (
+            ("scalar ILU(1) LLT poisson_3d(24)",
+             poisson_3d(24).to_scipy().tocsc(), "LLT"),
+            ("scalar ILU(1) LU convection_diffusion_3d(16)",
+             convection_diffusion_3d(16).to_scipy().tocsc(), "LU")):
+        t0 = time.perf_counter()
+        s, num = phase18_run(label, M, cfg(kind, **ilu(1, "scalar")), dev,
+                             forbid_fact=everything, need_solve=(),
+                             forbid_solve=everything)
+        num["seconds"] = time.perf_counter() - t0
+        num["memory_terms"] = s.report.memory_terms
+        log(f"  {label}: {num['seconds']:.2f} s on the host "
+            f"(pattern {s.report.analyze_time:.2f} s, factor "
+            f"{num['fact_ms'][1] / 1e3:.2f} s), {num['memory_terms']} terms")
+        if s.layout is not None or s._refine_fn is not None:
+            raise AssertionError(f"{label}: a device program was built")
+        runs[label] = num
+    # (d) the packed E2 path beside the left-looking figures
+    Si = shift_invert(ldlt_nx)[0].to_scipy().tocsc()
+    for label, M, c, key, need in (
+            (f"packed LLT poisson_3d({nx})", P,
+             cfg(packed_update=True), "LLT", ()),
+            (f"packed LDLT poisson_3d({ldlt_nx}) - sigma I fp32", Si,
+             cfg("LDLT", None, packed_update=True), "LDLT", ("K4",)),
+            (f"packed LU convection_diffusion_3d({lu_nx})",
+             convection_diffusion_3d(lu_nx).to_scipy().tocsc(),
+             cfg("LU", packed_update=True), "LU", ("K4",))):
+        gc.collect()
+        s, num = phase18_run(label, M, c, dev, need, ("K1", "K3"))
+        plan = s._packed_plan
+        num.update(
+            gemm_flops=plan.gemm_flops(), trsm_flops=plan.trsm_flops(),
+            fact_flops_padded=s.report.fact_flops_padded,
+            dense_tail_m=s.report.dense_tail_m,
+            left={f: left[key][f] for f in ("fact_ms", "gflops", "iters",
+                                            "residual", "peak_gib")})
+        log(f"  {label}: fact_ms {num['fact_ms'][1]:.1f} (left-looking "
+            f"{left[key]['fact_ms']:.1f}), {num['gflops']:.1f} useful "
+            f"GFLOP/s, {num['steps']} steps ({left[key]['iters']}), peak "
+            f"{num['peak_gib']} GiB ({left[key]['peak_gib']:.3f}); packed "
+            f"GEMM {plan.gemm_flops():.4e} + TRSM {plan.trsm_flops():.4e} "
+            f"flop against the grid's padded {s.report.fact_flops_padded:.4e}")
+        if s._fact_fn.e2 != "packed":
+            raise AssertionError(f"{label}: not the packed route")
+        runs[label] = num
+        del s, M
+    del P, Si
+    gc.collect()
+    # (e) at 24³: packed Schur against the sparse-LU S; complex64 LLᴴ
+    # packed, the card against the CPU
+    A24 = poisson_3d(24)
+    sch = last_plane(24)
+    reset_counts()
+    s, _ = analyzed(A24, cfg("LLT", None, packed_update=True), dev,
+                    schur=sch)
+    S = s.get_schur()
+    read_counts("packed Schur poisson_3d(24)", (), ("K1", "K3"))
+    S_ref = schur_reference(A24, sch)
+    s_err = float(np.abs(S - S_ref).max() / np.abs(S_ref).max())
+    log(f"  packed Schur poisson_3d(24) {S.shape}: max|S - S_ref|/"
+        f"max|S_ref| = {s_err:.3e}")
+    runs["packed Schur 24"] = {"rel_err": s_err}
+    if S.shape != (sch.size, sch.size) or not s_err <= TOL_S:
+        raise AssertionError(f"packed get_schur off by {s_err:.3e}")
+    del s
+    if dev.type == "cuda":
+        reset_counts()
+        ep, ex = card_matches_cpu(
+            herm_3d(24), precision_cfg("complex64", herm=True,
+                                       packed_update=True), dev)
+        read_counts("packed LLH complex64 herm_3d(24)", (), everything)
+        log(f"  packed LLH complex64 at 24³, card against CPU: pool "
+            f"{ep:.3e}, unrefined solution {ex:.3e}")
+        runs["packed LLH c64 card vs cpu"] = {"pool": ep, "solution": ex}
+        if not max(ep, ex) <= TOL_CARD:
+            raise AssertionError("packed LLH complex64: the card's pool "
+                                 "differs from the CPU's")
+    seconds = time.perf_counter() - t_phase
+    runs["seconds"] = seconds
+    log(f"phase 18: {seconds:.1f} s")
+    return runs
+
+
 def sass_count(build, kernel, ops, also=None):
     """How many of each SASS opcode of ``ops`` the library's ``kernel``
     functions hold (``cuobjdump -sass``, run once a library; ``also``:
@@ -2896,6 +3149,13 @@ def main() -> int:
     precision = precision_path(args.nx, args.lu_nx, dev)
     elapsed("phase 17")
 
+    # 18. ILU(k) (block on the card, scalar on the host) and the packed E2
+    # path beside the left-looking figures of phases 4, 7 and 8
+    ilu_packed = ilu_packed_path(
+        args.nx, args.lu_nx, args.ldlt_nx, dev,
+        {"LLT": main_num, "LU": lu_num, "LDLT": ldlt_num}, errs)
+    elapsed("phase 18")
+
     # no single PyTorch call computes a gather-GEMM-scatter over a pair
     # list or a block-sparse triangular sweep: library_ms is null but for
     # K4 LU (lu_factor_ex without pivoting) and K13 (index_select of the
@@ -3029,6 +3289,8 @@ def main() -> int:
         log(f"path LLT fused-DIAG {e2}: " + json.dumps(num))
     for label, num in precision.items():
         log(f"path precision {label}: " + json.dumps(num))
+    for label, num in ilu_packed.items():
+        log(f"path ilu/packed {label}: " + json.dumps(num))
     for T, (ms, plain, bd, lib, dev_ms, dev_lib) in k8_one.items():
         log(f"K8 one tile T={T}: " + json.dumps(
             {"ms": ms, "plain_ms": plain, "bound_ms": bd[0],

@@ -59,6 +59,7 @@ from pastix_tpu_torch.numeric.kernels import (
 from pastix_tpu_torch.numeric.leftlook import (
     build_ll_schedule, gemm_scatter_ll, ll_plan, regroup_left,
 )
+from pastix_tpu_torch.numeric.packed import build_packed_fn
 from pastix_tpu_torch.numeric.pipelined import (
     build_pipeline_schedule, gemm_scatter_pipelined, pipeline_plan,
 )
@@ -277,7 +278,8 @@ def panels(lv):
 
 def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
                        update_dtype=None, dense_tail=None, e2=None,
-                       fused_diag=None, dtype=torch.float32, hermitian=None):
+                       fused_diag=None, dtype=torch.float32, hermitian=None,
+                       packed_plan=None):
     """The program of ``kind`` for this pattern, in place on the pools,
     where the reference donates them to its jitted program:
 
@@ -312,12 +314,26 @@ def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
     ``dtype`` is the pools': float32 takes the route above; float64,
     complex64 and complex128 take :func:`_build_plain`.  ``hermitian``
     (default: LLᵗ and LDLᴴ, as the reference's) conjugates a complex
-    pool's transposes; LDLᴴ of a real pool is LDLᵗ."""
+    pool's transposes; LDLᴴ of a real pool is LDLᵗ.
+
+    ``packed_plan`` (``analyze.packed.build_packed_plan`` over the same
+    levels) takes the packed E2 path of every dtype,
+    ``numeric.packed.build_packed_fn``; it reads neither ``PASTIX_E2_*``
+    nor ``PASTIX_FUSED_DIAG``, and an explicit ``e2`` or
+    ``fused_diag=True`` with it raises ``ValueError``."""
     kind = Factorization(kind)
     if kind == Factorization.LDLH and not dtype.is_complex:
         kind = Factorization.LDLT
     if hermitian is None:
         hermitian = kind in (Factorization.LLT, Factorization.LDLH)
+    if update_dtype is not None and dtype.is_complex:
+        raise ValueError(
+            f"update_dtype={update_dtype} with a {dtype} pool: rounding "
+            "drops the imaginary part (the reference's astype does); a "
+            "complex pool takes no update dtype")
+    if packed_plan is not None:
+        return build_packed_fn(layout, device, kind, update_dtype, dense_tail,
+                               packed_plan, dtype, hermitian, e2, fused_diag)
     if dtype != torch.float32:
         return _build_plain(layout, device, kind, update_dtype, dense_tail,
                             e2, fused_diag, dtype, hermitian)
@@ -717,11 +733,6 @@ def _build_plain(layout, device, kind, update_dtype, dense_tail, e2,
         raise NotImplementedError(
             f"fused_diag with a {dtype} pool: the fused DIAG is the fp32 "
             "kernels K7 and K8")
-    if update_dtype is not None and dtype.is_complex:
-        raise ValueError(
-            f"update_dtype={update_dtype} with a {dtype} pool: rounding "
-            "drops the imaginary part (the reference's astype does); a "
-            "complex pool takes no update dtype")
     herm = hermitian and dtype.is_complex
     is_lu = kind == Factorization.LU
     if dense_tail is not None and (kind != Factorization.LLT or (

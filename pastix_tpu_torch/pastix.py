@@ -19,7 +19,12 @@ The route is chosen in ``analyze`` from ``compute_dtype`` and the kind:
 an fp32 real pool runs the hand kernels (K1, K4, K2); fp64 and complex
 pools run ``numeric.factorize._build_plain`` and the per-level solve in
 their own dtype, a complex one refining on the host in complex128 (the
-reference's rule, ``pastix_tpu/pastix.py:1741-1744``).
+reference's rule, ``pastix_tpu/pastix.py:1741-1744``).  Two options of the
+analysis change what is built: ``packed_update`` (the packed E2 path,
+``numeric/packed.py``, any dtype) and ``incomplete`` (ILU(k): block ILU
+factors an incomplete tile layout on the same routes; ``ilu_grain=
+"scalar"`` factors on the host, ``analyze/scalar_ilu.py``, and builds no
+device program).
 """
 
 from __future__ import annotations
@@ -36,6 +41,10 @@ import torch
 
 from pastix_tpu_torch.analyze import SolverLayout, build_layout
 from pastix_tpu_torch.analyze.layout import plan_dense_tail
+from pastix_tpu_torch.analyze.packed import build_packed_plan
+from pastix_tpu_torch.analyze.scalar_ilu import (
+    ScalarILUFactors, scalar_ilu_factor, scalar_ilu_pattern,
+)
 from pastix_tpu_torch.config import (
     Factorization,
     IOStrategy,
@@ -85,8 +94,19 @@ def compute_dtype(cfg: PastixConfig) -> torch.dtype:
     return _COMPUTE_DTYPES[name]
 
 
+def _scalar_ilu(cfg: PastixConfig) -> bool:
+    """Whether ILU(k) factors at scalar grain on the host."""
+    return cfg.incomplete and cfg.ilu_grain == "scalar"
+
+
 def _check_schur(cfg: PastixConfig) -> None:
-    """The Schur complement is fp32 real: its residue runs through K3."""
+    """The Schur complement is fp32 real: its residue runs through K3.
+    Scalar ILU has no tile layout to hold it (the reference's analyze
+    returns None there, and its get_schur would fail)."""
+    if _scalar_ilu(cfg):
+        raise ValueError(
+            "Schur unknowns with ilu_grain='scalar': the host factors hold "
+            "no Schur block; use ilu_grain='block'")
     dt = compute_dtype(cfg)
     if dt.is_complex:
         raise NotImplementedError(
@@ -132,16 +152,10 @@ def _check_config(cfg: PastixConfig) -> None:
             "reference's astype does); a complex pool takes no update dtype")
     if cfg.schur:
         _check_schur(cfg)
-    if cfg.incomplete:
-        raise _not_ported("incomplete (ILU) factorization", "slice 3")
     if cfg.ooc:
         raise _not_ported("out-of-core", "slice 4")
     if cfg.mesh_shape is not None:
         raise _not_ported("mesh_shape (multi-device)", "slice 5")
-    # packed_update=None (auto) is off: the port has no packed E2 path
-    # (the reference's auto turns it on for every backend but the TPU)
-    if cfg.packed_update:
-        raise _not_ported("packed_update=True (the packed E2 path)", "A7")
     if cfg.trace:
         raise _not_ported("trace=True (phase spans, dump_trace)", "A10")
 
@@ -165,6 +179,8 @@ class Pastix:
         self._ext_map: Optional[np.ndarray] = None  # permuted idx -> extended idx
         self._ext_n: int = 0
         self._dense_tail = None
+        self._packed_plan = None  # analyze.packed.PackedPlan, if packed
+        self._scalar_ilu_pat = None  # (rows, cols) of scalar ILU(k)
         self._schur_unknowns: Optional[np.ndarray] = None
         self._schur_first_bcol: Optional[int] = None
         self._refine_fn = None  # the device refinement loop, if it runs
@@ -514,10 +530,22 @@ class Pastix:
         inverse-tile solve is not ported).  A real fp64 pool refines in
         the device loop under the same flags, the per-level solve as M⁻¹;
         a complex pool refines on the host, in complex128.  The dense tail
-        is LLᵗ or LLᴴ (not complex-symmetric LLᵗ)."""
+        is LLᵗ or LLᴴ (not complex-symmetric LLᵗ).
+
+        ``incomplete`` (ILU(k), the reference's ``:392-452``): block grain
+        builds the incomplete tile layout (``level_of_fill``; no dense
+        tail, no packed plan) and factors it on the route of its dtype;
+        scalar grain (``ilu_grain="scalar"``) analyzes nothing here and
+        returns None: ``factorize`` computes the scalar pattern once and
+        factors on the host.  ``packed_update=True`` or ``PASTIX_PACKED``
+        (not ``0``) builds the packed plan (``analyze.packed``) over the
+        levels that run, and the factorization takes the packed E2 path
+        (the reference's gate ``:624-646``)."""
         cfg = self.config
         if self.symbol_ is None:
             self.symbfact()
+        if _scalar_ilu(cfg):
+            return None
         t0 = time.perf_counter()
         dev = self.device
         kind, dt, herm = self._kind, self._dtype, self._hermitian
@@ -525,7 +553,8 @@ class Pastix:
         itemsize = dt.itemsize
         is_lu = kind == Factorization.LU
         use_tail = (cfg.dense_tail and self._schur_first_bcol is None
-                    and kind == Factorization.LLT and herm)
+                    and kind == Factorization.LLT and herm
+                    and not cfg.incomplete)
         layout_path = os.path.join(cfg.io_dir, "layoutname")
         if cfg.io_strategy == IOStrategy.LOAD and os.path.exists(
             layout_path + ".npz"
@@ -539,6 +568,8 @@ class Pastix:
                 self._tile_size,
                 for_lu=is_lu,
                 schur_first_bcol=self._schur_first_bcol,
+                incomplete=cfg.incomplete,
+                level_of_fill=cfg.level_of_fill,
                 densify_tail_frac=cfg.dense_tail_fill if use_tail else 0.0,
             )
             if cfg.io_strategy == IOStrategy.SAVE:
@@ -563,12 +594,28 @@ class Pastix:
                 room = max(free - pool_bytes, (4 * T) ** 2 * 3 * itemsize)
                 m_cap = min(m_cap, int(np.sqrt(room / (3 * itemsize))))
             self._dense_tail = plan_dense_tail(lay, max_m=m_cap)
+        # the packed gate: packed_update=None (auto) stays off, a recorded
+        # deviation (the reference's auto turns it on for every backend
+        # but the TPU; whether the card wants it is for the benchmark's
+        # cells); PASTIX_PACKED overrides; never on an incomplete layout
+        packed_on = bool(cfg.packed_update)
+        env_packed = os.environ.get("PASTIX_PACKED")
+        if env_packed is not None:
+            packed_on = env_packed != "0"
+        self._packed_plan = None
+        if packed_on and not cfg.incomplete:
+            self._packed_plan = build_packed_plan(
+                lay, self._pat_perm_ext,
+                levels=(self._dense_tail.levels_lo
+                        if self._dense_tail is not None else None),
+                for_lu=is_lu,
+            )
         upd = _UPDATE_DTYPES[cfg.update_dtype]
         self._coef_fn = build_coefinit_fn(lay, self._A_perm, dev,
                                           for_lu=is_lu, dtype=dt)
         self._fact_fn = build_factorize_fn(
             lay, dev, kind, update_dtype=upd, dense_tail=self._dense_tail,
-            dtype=dt, hermitian=herm,
+            dtype=dt, hermitian=herm, packed_plan=self._packed_plan,
         )
         if cfg.fast_solve and not plain:
             self._dinv_fn = build_diag_inverse_fn(lay, dev, kind)
@@ -670,13 +717,20 @@ class Pastix:
         ``static_pivoting_threshold · max|A|`` and report their number in
         ``report.static_pivots``.  ``values`` (same pattern, new numbers:
         ``A.values`` order) refactors on the cached analysis, with no host
-        analysis again."""
+        analysis again.  Scalar ILU (``ilu_grain="scalar"``) factors on the
+        host instead (:meth:`_factorize_scalar_ilu`)."""
         cfg = self.config
-        if self.layout is None:
+        scalar = _scalar_ilu(cfg)
+        if scalar:
+            if self.symbol_ is None:
+                self.symbfact()
+        elif self.layout is None:
             self.analyze()
         if values is not None:
             self._set_values(values)
         t0 = time.perf_counter()
+        if scalar:
+            return self._factorize_scalar_ilu(t0)
         f = self.factors = numeric_factorize(
             self.layout, self._A_perm, self._coef_fn, self._fact_fn,
             self.device, pivot_threshold=cfg.static_pivoting_threshold,
@@ -695,6 +749,41 @@ class Pastix:
             print(
                 f"[pastix-tpu-torch] numfact: {self.report.fact_time:.3f}s "
                 f"({self.report.fact_gflops:.2f} GFLOP/s useful)"
+            )
+        return self.factors
+
+    def _factorize_scalar_ilu(self, t0: float) -> ScalarILUFactors:
+        """Scalar-grain ILU(k) on the host (the reference's
+        ``_factorize_scalar_ilu``, ``pastix.py:1167-1211``): the exact
+        scalar level-of-fill pattern, computed on the first call and kept
+        for new values (its seconds are ``report.analyze_time``), then the
+        host IKJ factorization restricted to it.  No tile layout and no
+        device program: ``solve`` and ``as_preconditioner`` apply the
+        factors on the host (``ScalarILUFactors.solve``) inside the host
+        refinement loop.  As the reference's, ``report.nnz_l_exact`` and
+        ``fact_flops`` keep describing the complete fill."""
+        cfg = self.config
+        if self._scalar_ilu_pat is None:
+            self._scalar_ilu_pat = scalar_ilu_pattern(
+                self._pat_perm_ext, cfg.level_of_fill)
+            self.report.analyze_time = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        lr, lc = self._scalar_ilu_pat
+        anorm = float(abs(self._A_perm).max())
+        self.factors = scalar_ilu_factor(
+            self._A_perm.tocsc(), lr, lc,
+            cfg.static_pivoting_threshold * anorm,
+        )
+        self.report.fact_time = time.perf_counter() - t0
+        self.report.static_pivots = self.factors.static_pivots
+        self.report.memory_terms = self.factors.nnz_terms
+        self.report.nnz_l = int(self.factors.L.nnz)
+        if cfg.verbosity >= Verbosity.NO:
+            print(
+                f"[pastix-tpu-torch] scalar ILU({cfg.level_of_fill}): "
+                f"{self.factors.nnz_terms} terms, "
+                f"{self.report.fact_time:.3f}s "
+                f"(pivots clamped: {self.report.static_pivots})"
             )
         return self.factors
 
@@ -728,7 +817,10 @@ class Pastix:
     def _raw_solve_ext(self, b_ext: np.ndarray) -> np.ndarray:
         """The factored solve, no refinement, of a host vector or block in
         the extended permuted order, through the device (in the pools'
-        dtype there, fp64 or complex128 back): the host loop's M⁻¹."""
+        dtype there, fp64 or complex128 back): the host loop's M⁻¹.  Scalar
+        ILU factors apply on the host."""
+        if isinstance(self.factors, ScalarILUFactors):
+            return self.factors.solve(b_ext)
         return run_host(self.factors, b_ext, self._solve_fn)
 
     def _device_solve_refined(self, b_ext: np.ndarray):
@@ -952,6 +1044,8 @@ class Pastix:
         self._fwd_fn = self._bwd_fn = self._solve_fn = None
         self._refine_fn = None
         self._dense_tail = None
+        self._packed_plan = None
+        self._scalar_ilu_pat = None
 
     # the reference's member that is not ported yet: it raises, naming
     # its ROADMAP item

@@ -18,8 +18,10 @@ against the same loops on the CPU (iterations within 1, solutions within
 ``fast_solve=False`` against K2's solve on the same factors (1e-5); the
 complex64 pools and unrefined solutions of ``chip_smoke.py`` phase 17 at
 24³ against the CPU's (1e-4), a complex64 ``bmm`` under
-``pin_precision`` against complex128 (1e-5), and fp64 pools against the
-CPU's (1e-10).
+``pin_precision`` against complex128 (1e-5), fp64 pools against the
+CPU's (1e-10), the packed E2 path's pools on the card against the CPU's
+(1e-4), and block ILU's K1 plans against the twin (1e-4, bit for bit
+twice).
 """
 
 import dataclasses
@@ -1151,3 +1153,69 @@ def test_float64_on_cuda_matches_cpu(cuda, kind):
     (p1, x1), (p0, x0) = out
     assert np.abs(p1 - p0).max() <= 1e-10 * np.abs(p0).max()
     assert np.abs(x1 - x0).max() <= 1e-9
+
+
+@pytest.mark.parametrize("kind,upd", [("LLT", "bfloat16"), ("LDLT", None),
+                                      ("LU", "bfloat16")])
+@pytest.mark.parametrize("T", [32, 128])
+def test_packed_on_cuda_matches_cpu(cuda, kind, upd, T):
+    """The packed E2 path (``packed_update=True``) on the card against the
+    same solver on the CPU: pools (and the Uᵗ pool) within 1e-4 max|cpu|,
+    residual 1e-10; K4 launches for LDLᵗ and LU, no K1 or K3 in the
+    factorization, K2 in the solve."""
+    A = (convection_diffusion_3d(12) if kind == "LU" else poisson_3d(12))
+    b = A.to_scipy() @ np.ones(A.n)
+    out = []
+    for d in (cuda, "cpu"):
+        s = Pastix(A, PastixConfig(tile_size=T, update_dtype=upd,
+                                   packed_update=True,
+                                   factorization=Factorization[kind]),
+                   device=d)
+        s.analyze()
+        k1, k3, k4 = (LL.gemm_scatter_ll.launches,
+                      PL.gemm_scatter_pipelined.launches,
+                      TF.tile_factor.launches)
+        s.factorize()
+        if d != "cpu":
+            assert LL.gemm_scatter_ll.launches == k1
+            assert PL.gemm_scatter_pipelined.launches == k3
+            assert (TF.tile_factor.launches > k4) == (kind != "LLT")
+            k2 = SW.run_sweep.launches
+        x = s.solve(b)
+        if d != "cpu":
+            assert SW.run_sweep.launches > k2
+        assert s._fact_fn.e2 == "packed" and s.report.residual <= 1e-10
+        f = s.factors
+        out.append([f.pool.cpu().numpy()] + (
+            [f.pool_u.cpu().numpy()] if f.pool_u is not None else []))
+    for got, ref in zip(*out):
+        assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("T", [32, 64, 128])
+@pytest.mark.parametrize("kind", ["LLT", "LU"])
+@pytest.mark.parametrize("k", [0, 1])
+def test_ilu_k1_plans_match_twin(cuda, T, kind, k):
+    """Block ILU(k)'s K1 plans (the incomplete layout's sparser update
+    lists) at the busiest level, kernel against twin (bf16 updates), two
+    runs bit-identical; then the ILU solve on the card to 1e-10."""
+    A = (convection_diffusion_3d(14) if kind == "LU" else poisson_3d(14))
+    s = Pastix(A, PastixConfig(tile_size=T, update_dtype="bfloat16",
+                               incomplete=True, level_of_fill=k,
+                               refinement_itermax=400,
+                               factorization=Factorization[kind]),
+               device=cuda)
+    s.factorize()
+    lv = max(s._fact_fn.levels, key=lambda lv: sum(c.n_pairs for c in lv.ll))
+    assert lv.ll
+    f = s.factors
+    kw = {"src_pool": f.pool_u} if f.pool_u is not None else {}
+    before = LL.gemm_scatter_ll.launches
+    got = LL.gemm_scatter_ll(f.pool.clone(), lv.ll, torch.bfloat16, **kw)
+    assert LL.gemm_scatter_ll.launches == before + len(lv.ll)
+    assert torch.equal(got, LL.gemm_scatter_ll(f.pool.clone(), lv.ll,
+                                               torch.bfloat16, **kw))
+    _close_e2(got, LL.gemm_scatter_ll_ref(f.pool.clone(), lv.ll,
+                                          torch.bfloat16, **kw), lv.ll)
+    x = s.solve(A.to_scipy() @ np.ones(A.n))
+    assert s.report.residual <= 1e-10 and np.abs(x - 1).max() < 1e-8

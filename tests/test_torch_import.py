@@ -26,6 +26,8 @@ SLICE_MODULES = [
     "pastix_tpu_torch._build",
     "pastix_tpu_torch._device",
     "pastix_tpu_torch.analyze",
+    "pastix_tpu_torch.analyze.packed",
+    "pastix_tpu_torch.analyze.scalar_ilu",
     "pastix_tpu_torch.cli",
     "pastix_tpu_torch.config",
     "pastix_tpu_torch.convert",
@@ -43,6 +45,7 @@ SLICE_MODULES = [
     "pastix_tpu_torch.numeric.fused",
     "pastix_tpu_torch.numeric.kernels",
     "pastix_tpu_torch.numeric.leftlook",
+    "pastix_tpu_torch.numeric.packed",
     "pastix_tpu_torch.numeric.pipelined",
     "pastix_tpu_torch.numeric.slab",
     "pastix_tpu_torch.numeric.sweep_kernels",
@@ -85,6 +88,10 @@ SOLVES = (
     "x, rep = pastix(A.n, M.indptr, M.indices, M.data, b,\n"
     "                P.PastixConfig(tile_size=16), device='cpu')\n"
     "assert np.abs(x - 1).max() < 1e-9 and rep.residual <= 1e-10\n"
+    "for kw in (dict(packed_update=True), dict(incomplete=True,\n"
+    "           level_of_fill=0, ilu_grain='scalar')):\n"
+    "    x = P.spsolve(A, b, device='cpu', tile_size=16, **kw)\n"
+    "    assert np.abs(x - 1).max() < 1e-9\n"
 )
 
 

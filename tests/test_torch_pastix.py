@@ -174,7 +174,7 @@ def test_unported_kinds_raise(make, exc, match):
 
 @pytest.mark.parametrize("cfg,taken", [
     (dict(compute_dtype="complex64"), True), (dict(mesh_shape=(2,)), False),
-    (dict(ooc=True), False), (dict(incomplete=True), False),
+    (dict(ooc=True), False), (dict(incomplete=True), True),
     (dict(refinement=RefinementMethod.GMRES), True),
     (dict(schur=True, factorization=Factorization.LDLH), True),
 ], ids=["complex", "mesh", "ooc", "ilu", "gmres", "schur"])
@@ -182,7 +182,8 @@ def test_unported_options_raise(cfg, taken):
     """The complex case is taken since A3 was ported (a complex64 pool solves
     the real matrix), and so is the schur case (LDLᴴ of a real pool is
     LDLᵗ, whose Schur path is ported).  The gmres case is taken since the
-    refinement methods were ported (A4): it solves."""
+    refinement methods were ported (A4): it solves; and so is the ilu case
+    since ILU was ported (A5): block ILU(1) with GMRES solves."""
     if not taken:
         with pytest.raises(NotImplementedError, match="ROADMAP.md slice"):
             Pastix(poisson_3d(4), PastixConfig(**cfg), device="cpu")
@@ -194,7 +195,9 @@ def test_unported_options_raise(cfg, taken):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("packed_update", True, "A7"), ("packed_update", None, None),
+    # taken since A7 ported the packed E2 path: the id keeps its item
+    pytest.param("packed_update", True, None, id="packed_update-True-A7"),
+    ("packed_update", None, None),
     ("packed_update", False, None), ("trace", True, "A10"),
     # taken since A2 ported them: the ids keep the item that did
     pytest.param("fast_solve", False, None, id="fast_solve-False-A2"),
@@ -204,7 +207,8 @@ def test_unported_options_raise(cfg, taken):
 ])
 def test_config_fields_raise_or_are_taken(field, value, item):
     """Every config field the port does not act on raises naming its
-    ROADMAP item; packed_update=None (auto) is off, as False.  A field
+    ROADMAP item; packed_update=None (auto) is off, as False, and True
+    builds the packed plan and solves on it (A7).  A field
     that is taken is acted on: fast_solve=False makes no inverse diagonal
     tiles and both refine on the host loop, and residual_dtype acts there
     (its residuals then accumulate in the matrix's fp64, as the
@@ -218,7 +222,15 @@ def test_config_fields_raise_or_are_taken(field, value, item):
         if field == "residual_dtype":
             s = Pastix(A, PastixConfig(residual_dtype=value,
                                        device_refine=False), device="cpu")
-        if field != "packed_update":
+        if field == "packed_update":
+            s.analyze()
+            assert (s._packed_plan is not None) == bool(value)
+            assert (s._fact_fn.e2 == "packed") == bool(value)
+            if value:
+                x = s.solve(A.to_scipy() @ np.ones(A.n))
+                assert np.abs(x - 1).max() < 1e-9
+                assert s.report.residual <= 1e-10
+        else:
             x = s.solve(A.to_scipy() @ np.ones(A.n))
             assert np.abs(x - 1).max() < 1e-9
             assert s.report.residual <= 1e-10
