@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``pastix_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--nx N] [--schur-nx N] [--lu-nx N] [--ldlt-nx N]
+                          [--ooc-nx N] [--ooc-mb MB]
 
 Phases; any failed check raises, so the script exits non-zero and never
 prints the final ``ok`` line:
@@ -233,6 +234,40 @@ prints the final ``ok`` line:
    only, a complex64 LLᴴ packed solver's pool and unrefined solution
    against the same solver on the CPU (1e-4 max|cpu|); the phase's
    seconds are logged;
+19. out-of-core (ROADMAP A8), T=128, each streamed factorization with
+   the counts set to 0 just before it and read just after (K3 launched,
+   and K4 on LDLᵗ and LU; K1, K2, K5-K13 and every twin not), the card's
+   cached blocks released and its peaks reset before it: peak allocated
+   and reserved bytes <= ``ooc_limit_mb``; then a refined solve of
+   b = A 1 through the streamed solve and the host loop to <= 1e-10,
+   bytes and seconds uploaded and downloaded logged: (a) LLᵗ bf16 on
+   ``poisson_3d(--nx)``, shift-invert LDLᵗ fp32 on phase 8's matrix and
+   LU fp32 on ``convection_diffusion_3d(--lu-nx)`` (with bf16 updates
+   its pools differ by a bf16 rounding here and there: PERF.md), each
+   under a third of its pools (at least 3 segments), against the same
+   matrix's resident ``e2="pair"`` solver (one host analysis, saved and
+   loaded): LLᵗ and LU pools within 1e-4 max|resident| (the entries above
+   1e-5 counted), LDLᵗ pools a level at a time within 1e-4 or 4 times
+   that level's spread between the resident left-looking and pair
+   schedules on the same matrix, the larger (how far fp32 summation
+   order moves its factor: near-singular pivots make a few levels
+   ill-determined), residuals and steps (within
+   2); for each, K3 and K4 held against their twins on the inputs of the
+   busiest segment and of the busiest that factors columns (the
+   factorization streamed again up to them, each call checked before it
+   runs: K3 at 1e-4, on buffer coordinates with export slots, LDLᵗ's
+   ``d=`` and LU's ``src_pool=`` both ways, two runs bit-identical; K4
+   at 1e-5 on each group of diagonal tiles, equal clamps); (a')
+   auto-streaming: LLᵗ bf16 on
+   ``poisson_3d(40)`` without ``ooc``, the card's free memory patched to
+   a third of its pool: it streams (no device refinement loop) with its
+   peaks within that memory; (b)
+   LLᵗ bf16 on ``poisson_3d(--ooc-nx)`` under ``--ooc-mb``; (c) the
+   offload: ``poisson_3d(24)`` LLᵗ with the plane z = 23 as Schur
+   unknowns (which cannot stream) under a 1 MB limit: after the
+   factorization the pool is in host memory and the card holds less than
+   it, ``solve_with_schur`` restores it and launches K2 (residual <=
+   1e-10); the phase's seconds are logged;
 
 then the card's nvidia-smi line, one JSON line of the kernels (each
 variant on its own line of the list, ``launches`` from the path that runs
@@ -263,6 +298,9 @@ CLEAN_SLACK = 64 * 2 ** 20  # bytes clean() may leave allocated
 # (eigsh on the host, nx = 16 to 40); poisson_3d(64)'s smallest is 0.007,
 # so phase 17 (a) adds this to stay definite
 HERM_DELTA = 0.1
+TOL_ORDER = 4.0  # streamed LDLᵗ pools against resident ones a level at
+# a time, in units of that level's spread between the resident
+# left-looking and pair schedules (where it is above TOL_E2 / 4)
 TOL_CARD = 1e-4  # card against CPU, complex64 pool and solution, max|ref|
 TOL_BMM = 1e-5  # complex64 bmm against complex128 under pin_precision
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
@@ -353,11 +391,11 @@ def e2_bound_lists(lists, T, pair_flops, upd):
 
 
 def check_e2(name, run, run_ref, pool, chunks, update_dtype, label,
-             repeat=False, **kw):
+             repeat=False, quiet=False, **kw):
     """An E2 kernel (K1, K3, K5 or K6) against its twin on copies of
     ``pool`` (``kw``: the ``d`` or ``src_pool`` variant, K3's operand
-    arrays); ``repeat``: a second run must be bit-identical.  Returns
-    max|d|."""
+    arrays); ``repeat``: a second run must be bit-identical; ``quiet``
+    logs a failure only.  Returns max|d|."""
     import torch
 
     got = run(pool.clone(), chunks, update_dtype, **kw)
@@ -370,6 +408,8 @@ def check_e2(name, run, run_ref, pool, chunks, update_dtype, label,
     scale = float(ref[touched].abs().max())
     err = float((got - ref).abs().max())
     ok = err <= TOL_E2 * scale
+    if quiet and ok:
+        return err
     log(f"{name} {label}: {len(chunks)} chunks, "
         f"{sum(c.n_pairs for c in chunks)} pairs, max|d|={err:.3e} "
         f"max|ref|={scale:.3e}{', two runs bit-identical' if repeat else ''}"
@@ -386,12 +426,12 @@ def check_k1(pool, chunks, update_dtype, label, **kw):
                     chunks, update_dtype, label, repeat=True, **kw)
 
 
-def check_k3(pool, chunks, update_dtype, label, **kw):
+def check_k3(pool, chunks, update_dtype, label, quiet=False, **kw):
     from pastix_tpu_torch.numeric import pipelined as PL
 
     return check_e2("K3", PL.gemm_scatter_pipelined,
                     PL.gemm_scatter_pipelined_ref, pool, chunks,
-                    update_dtype, label, repeat=True, **kw)
+                    update_dtype, label, repeat=True, quiet=quiet, **kw)
 
 
 def sweep_pair(solver):
@@ -558,11 +598,11 @@ def planted_tiles(T, lu, n=6, seed=0):
     return torch.tensor(M, dtype=torch.float32, device="cuda"), len(planted)
 
 
-def check_k4(tiles, eps, lu, label, expect=None):
+def check_k4(tiles, eps, lu, label, expect=None, quiet=False):
     """K4 against its twin on copies of ``tiles`` (all factored): equal
     clamp counts (and ``expect`` when given), max|d| <= 1e-5 max|ref| on
     the tiles and, for LDLᵗ, on d, and a second K4 run bit-identical to
-    the first; returns max|d|."""
+    the first; ``quiet`` logs a failure only.  Returns max|d|."""
     import torch
     from pastix_tpu_torch.numeric import tile_factor as TF
 
@@ -585,6 +625,8 @@ def check_k4(tiles, eps, lu, label, expect=None):
         d_err = float((d_got - d_ref).abs().max())
         ok = ok and d_err <= TOL_K4 * float(d_ref.abs().max())
         err = max(err, d_err)
+    if quiet and ok:
+        return err
     log(f"K4 {'LU' if lu else 'LDLT'} {label}: {tiles.shape[0]} tiles, "
         f"clamps {int(n_got)} (twin {int(n_ref)}), max|d|={err:.3e} "
         f"max|ref|={scale:.3e}, two runs "
@@ -2902,6 +2944,403 @@ def ilu_packed_path(nx, lu_nx, ldlt_nx, dev, left, errs):
     return runs
 
 
+def pool_diff(host, pool):
+    """(max|host - pool|, max|pool|, the entries whose difference is
+    above 1e-5 max|pool|): a streamed pool in host memory against a
+    resident one on the card, compared on the card in chunks of 4096
+    tiles."""
+    m = float(pool.abs().max())
+    d, n = 0.0, 0
+    for lo in range(0, pool.shape[0], 4096):
+        diff = (host[lo:lo + 4096].to(pool.device) - pool[lo:lo + 4096]).abs()
+        d = max(d, float(diff.max()))
+        n += int((diff > 1e-5 * m).sum())
+    return d, m, n
+
+
+def level_spread(X, pool, lay):
+    """max|X - pool| over the tiles of each level of ``lay`` (the tiles
+    of its block columns) / max|pool|, a numpy array; ``X`` in host
+    memory or on the card, compared on the card in chunks of 4096
+    tiles."""
+    import torch
+
+    per = torch.empty(pool.shape[0], dtype=pool.dtype, device=pool.device)
+    for lo in range(0, pool.shape[0], 4096):
+        per[lo:lo + 4096] = (X[lo:lo + 4096].to(pool.device)
+                             - pool[lo:lo + 4096]).abs().amax(dim=(1, 2))
+    lev = np.zeros(lay.nbc, np.int64)
+    for i, lv in enumerate(lay.levels):
+        lev[np.asarray(lv.cols)] = i
+    out = np.zeros(len(lay.levels))
+    np.maximum.at(out, lev[lay.blk_col], per.cpu().numpy())
+    return out / float(pool.abs().max())
+
+
+def streamed_run(label, A, cfg, dev, need, forbid, limit_mb):
+    """One streamed solver of phase 19: analyze, then one factorize with
+    the counts set to 0 just before and read just after (``need``
+    launched, ``forbid`` and the twins not), the card's cached blocks
+    released and its peaks reset first: the peak allocated and reserved
+    bytes above their level before it are the factorization's own (each
+    <= ``limit_mb``); then a refined solve of b = A 1 (residual <= 1e-10,
+    the host loop).  Returns (solver, figures)."""
+    import gc
+
+    import torch
+
+    s, t = analyzed(A, cfg, dev)
+    plan = s._ooc_plan
+    if plan is None:
+        raise AssertionError(f"{label}: the analysis did not stream")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    base_r = torch.cuda.memory_reserved(dev)
+    reset_counts()
+    s.factorize()
+    launches = read_counts(f"{label}: streamed factorize", need, forbid)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    reserved = torch.cuda.max_memory_reserved(dev) - base_r
+    io = dict(plan.io)
+    M = A.to_scipy()
+    b = M @ np.ones(A.n)
+    rec = instrument(s)
+    x = s.solve(b)
+    res = float(np.linalg.norm(b - M @ x) / np.linalg.norm(b))
+    lay = s.layout
+    npools = 2 if s.factors.pool_u is not None else 1
+    num = {
+        "n": A.n, "analysis_s": sum(t.values()),
+        "order_symbfact_analyze_s": [t["order"], t["symbfact"], t["analyze"]],
+        "npool": lay.npool,
+        "pools_gib": npools * lay.npool * lay.T ** 2 * 4 / 2 ** 30,
+        "limit_mib": limit_mb, "segments": len(plan.segments),
+        "passes": sum(a.win is b_.win for a, b_ in zip(plan.segments,
+                                                      plan.segments[1:])),
+        "max_window_tiles": max(g.n_win for g in plan.segments),
+        "max_footprint_tiles": plan.max_footprint_tiles(),
+        "gemm_chunk": plan.gemm_chunk,
+        "fact_ms": s.report.fact_time * 1e3,
+        "gflops": s.report.fact_flops / s.report.fact_time / 1e9,
+        "peak_allocated_mib": peak / 2 ** 20,
+        "peak_reserved_mib": reserved / 2 ** 20,
+        "allocated_before_mib": base / 2 ** 20,
+        "reserved_before_mib": base_r / 2 ** 20,
+        "up_gib": io["up_bytes"] / 2 ** 30, "up_s": io["up_s"],
+        "down_gib": io["down_bytes"] / 2 ** 30, "down_s": io["down_s"],
+        "solve_s": s.report.solve_time + s.report.refine_time,
+        "host_steps": s.report.refine_iters - rec["dev_iters"],
+        "host_solves": rec["host_solves"],
+        "residual": s.report.residual, "residual_original_order": res,
+        "static_pivots": s.report.static_pivots,
+        "launches": {k: v for k, v in launches.items() if v},
+    }
+    log(f"ooc {label}: " + json.dumps(num))
+    if not s.factors.streamed or s.factors.pool.device.type != "cpu":
+        raise AssertionError(f"{label}: the factors are not in host memory")
+    if max(peak, reserved) > limit_mb * 2 ** 20:
+        raise AssertionError(
+            f"{label}: peak allocated {peak / 2 ** 20:.1f} MiB or reserved "
+            f"{reserved / 2 ** 20:.1f} MiB above the {limit_mb} MiB budget")
+    if x.shape != (A.n,) or not np.isfinite(x).all():
+        raise AssertionError(f"{label}: the solution is not finite")
+    if not max(res, s.report.residual) <= TOL_RES:
+        raise AssertionError(f"{label}: residual {res:.3e} above {TOL_RES}")
+    return s, num
+
+
+def segment_twins(s, label):
+    """K3 and K4 of a streamed solver against their twins on the inputs
+    its segment programs give them: the factorization streamed again
+    (from the host coefinit) up to its busiest segment (the most K3
+    pairs) and the busiest one that factors columns, where those differ
+    (a later pass of a multi-pass segment runs updates only).  In those
+    segments every K3 call (chunks on buffer coordinates into the window
+    and the export slots; LDLᵗ ``d=``, LU ``src_pool=`` both ways) and
+    every K4 call (a group of diagonal tiles) is checked on copies of
+    its operands (``check_k3``: TOL_E2, two runs bit-identical;
+    ``check_k4``: TOL_K4, equal clamps) before it runs.  The launches of
+    this run are not the main path's.  Returns the figures."""
+    import dataclasses
+
+    import scipy.sparse as sp
+    import torch
+    from pastix_tpu_torch.numeric import factorize as F
+    from pastix_tpu_torch.numeric import ooc as O
+
+    fn, plan, lay = s._fact_fn, s._ooc_plan, s.layout
+    kind = fn.kind.name
+    pairs = [sum(c.n_pairs for lv in p.levels for c in lv.full + lv.nd)
+             for p in fn.programs]
+    cols = [i for i, p in enumerate(fn.programs)
+            if any(lv.groups for lv in p.levels)]
+    watch = {int(np.argmax(pairs)), max(cols, key=lambda i: pairs[i])}
+    sub = dataclasses.replace(plan, segments=plan.segments[:max(watch) + 1])
+    st = {"on": None, "k3": 0, "k4": 0, "k3_err": 0.0, "k4_err": 0.0}
+    k3_real, k4_real = O.gemm_scatter_pipelined, F.tile_factor
+
+    def k3(pool, chunks, upd=None, **kw):
+        if st["on"] is not None:
+            st["k3_err"] = max(st["k3_err"], check_k3(
+                pool, chunks, upd, f"{label} segment {st['on']} call "
+                f"{st['k3']}", quiet=True, **kw))
+            st["k3"] += 1
+        return k3_real(pool, chunks, upd, **kw)
+
+    def k4(pool, idx, eps, npiv, lu=False):
+        if st["on"] is not None:
+            st["k4_err"] = max(st["k4_err"], check_k4(
+                pool[idx], eps, lu, f"{label} segment {st['on']} group "
+                f"{st['k4']}", quiet=True))
+            st["k4"] += 1
+        return k4_real(pool, idx, eps, npiv, lu)
+
+    def watched(i, prog):
+        def run(*a, **kw):
+            st["on"] = i
+            try:
+                prog(*a, **kw)
+            finally:
+                st["on"] = None
+        return run
+
+    progs = [watched(i, p) if i in watch else p
+             for i, p in enumerate(fn.programs[:len(sub.segments)])]
+    vals = torch.as_tensor(sp.coo_matrix(s._A_perm).data.astype(np.float32))
+    pools = s._coef_fn(vals)
+    eps = s.config.static_pivoting_threshold * float(abs(s._A_perm).max())
+    O.gemm_scatter_pipelined, F.tile_factor = k3, k4
+    try:
+        if kind == "LU":
+            O.factorize_ooc_lu(lay, sub, *pools, eps, s.device,
+                               programs=progs)
+        elif kind == "LDLT":
+            O.factorize_ooc_ldlt(lay, sub, pools, eps, s.device,
+                                 programs=progs)
+        else:
+            O.factorize_ooc(lay, sub, pools, s.device, programs=progs)
+        torch.cuda.synchronize()
+    finally:
+        O.gemm_scatter_pipelined, F.tile_factor = k3_real, k4_real
+    num = {"segments": sorted(watch),
+           "pairs": [pairs[i] for i in sorted(watch)],
+           "k3_calls": st["k3"], "k3_max_abs_err": st["k3_err"],
+           "k4_calls": st["k4"], "k4_max_abs_err": st["k4_err"]}
+    log(f"ooc {label}: segment kernels against their twins "
+        f"{json.dumps(num)} -> ok")
+    if not st["k3"] or (kind != "LLT" and not st["k4"]):
+        raise AssertionError(f"{label}: the watched segments ran no K3 or "
+                             "no K4")
+    return num
+
+
+def ooc_path(nx, lu_nx, ldlt_nx, big_nx, big_mb, dev, auto_nx=40):
+    """Phase 19: out-of-core on the card (see the module docstring).
+    Returns the runs' figures by label."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from pastix_tpu_torch import Pastix
+    from pastix_tpu_torch.config import Factorization, IOStrategy, PastixConfig
+    from pastix_tpu_torch.generators import convection_diffusion_3d, poisson_3d
+    from pastix_tpu_torch.numeric.factorize import build_factorize_fn
+
+    t_phase = time.perf_counter()
+    runs = {}
+    io_root = tempfile.mkdtemp(prefix="pastix_ooc_")
+    LLT, LDLT, LU = Factorization.LLT, Factorization.LDLT, Factorization.LU
+    rest = ("K1", "K2", "K5", "K6", "K7", "K8", "K9", "K10", "K11", "K12",
+            "K13")
+    try:
+        # (a) streamed against the resident pair schedule, one host
+        # analysis a matrix (saved alone, loaded by both); the pools are
+        # held to the resident ones for LLᵗ (bf16) and LU, whose updates
+        # are fp32 here: with bf16 ones LU's pools differ by up to 1.1e-4
+        # max|resident| where an operand's fp32 value, summed in another
+        # order, rounds to another bf16 (PERF.md §6)
+        for name, A, kind, upds in (
+                (f"LLT poisson_3d({nx})", poisson_3d(nx), LLT,
+                 ("bfloat16",)),
+                (f"LDLT shift-invert poisson_3d({ldlt_nx})",
+                 shift_invert(ldlt_nx)[0], LDLT, (None,)),
+                (f"LU convection_diffusion_3d({lu_nx})",
+                 convection_diffusion_3d(lu_nx), LU, (None,))):
+            gc.collect()
+            d = os.path.join(io_root, kind.name)
+            os.makedirs(d)
+            cfg = lambda io, upd, **kw: PastixConfig(
+                tile_size=128, update_dtype=upd, factorization=kind,
+                dense_tail=False, io_strategy=io, io_dir=d, **kw)
+            # the host analysis alone, saved (no device table is built)
+            p = Pastix(A, cfg(IOStrategy.SAVE, None), device=dev)
+            p.order()
+            p.symbfact()
+            lay = p._build_layout(False)
+            del p
+            npools = 2 if kind == LU else 1
+            limit = max(1, npools * lay.npool * lay.T ** 2 * 4 // 3 // 2 ** 20)
+            M = A.to_scipy()
+            for upd in upds:
+                t_run = time.perf_counter()
+                label = f"{name} {'fp32' if upd is None else 'bf16'}"
+                s, num = streamed_run(
+                    label, A, cfg(IOStrategy.LOAD, upd, ooc=True,
+                                  ooc_limit_mb=limit),
+                    dev, ("K3", "K4") if kind != LLT else ("K3",), rest,
+                    limit)
+                if num["segments"] < 3:
+                    raise AssertionError(f"{label}: fewer than 3 segments")
+                t0 = time.perf_counter()
+                num["segment_twins"] = segment_twins(s, label)
+                num["segment_twins"]["seconds"] = time.perf_counter() - t0
+                r, _ = analyzed(A, cfg(IOStrategy.LOAD, upd), dev)
+                left = None
+                if kind == LDLT:
+                    # the resident left-looking schedule (K1) first: how
+                    # far fp32 summation order alone moves this matrix's
+                    # factor is its spread against the pair one (K3)
+                    r.factorize()
+                    left = r.factors.pool.clone()
+                    r.factors = None
+                r._fact_fn = build_factorize_fn(
+                    r.layout, dev, kind, e2="pair",
+                    update_dtype=None if upd is None else torch.bfloat16)
+                r.factorize()
+                r.solve(M @ np.ones(A.n))
+                resident = {"fact_ms": r.report.fact_time * 1e3,
+                            "iters": r.report.refine_iters,
+                            "residual": r.report.residual}
+                num["resident_pair"] = resident
+                errs, over = {}, {}
+                for side in ("pool", "pool_u") if kind == LU else ("pool",):
+                    diff, top, n = pool_diff(getattr(s.factors, side),
+                                             getattr(r.factors, side))
+                    errs[side], over[side] = diff / top, n
+                num["pool_rel_err"] = errs
+                num["entries_above_1e-5"] = over
+                ok = max(errs.values()) <= TOL_E2
+                held = f"held to {TOL_E2}"
+                if left is not None:
+                    # a level at a time: TOL_E2, or TOL_ORDER times the
+                    # level's spread between the resident schedules
+                    pair = r.factors.pool
+                    lv_s = level_spread(s.factors.pool, pair, r.layout)
+                    lv_l = level_spread(left, pair, r.layout)
+                    tol = np.maximum(TOL_E2, TOL_ORDER * lv_l)
+                    w = int(np.argmax(lv_s / tol))
+                    diff, top, n = pool_diff(left, pair)
+                    num["resident_left_vs_pair"] = {
+                        "pool_rel_err": diff / top, "entries_above_1e-5": n}
+                    num["levels"] = {
+                        "count": len(tol),
+                        "held_to_tol_e2": int((tol == TOL_E2).sum()),
+                        "worst": w, "streamed": lv_s[w], "left": lv_l[w],
+                        "tol": tol[w]}
+                    ok = bool((lv_s <= tol).all())
+                    held = ("held a level at a time: "
+                            + json.dumps(num["levels"])
+                            + "; resident left-looking against pair "
+                            + json.dumps(num["resident_left_vs_pair"]))
+                    del left, pair
+                log(f"ooc {label}: resident pair {json.dumps(resident)}, "
+                    f"pools max|streamed - resident| / max|resident| {errs}"
+                    f", entries above 1e-5 max|resident| {over} ({held})")
+                if not ok:
+                    raise AssertionError(f"{label}: the streamed pools "
+                                         "differ from the resident ones")
+                if resident["residual"] > TOL_RES or abs(
+                        num["host_steps"] - resident["iters"]) > 2:
+                    raise AssertionError(
+                        f"{label}: {num['host_steps']} streamed refinement "
+                        f"steps against the resident {resident['iters']}")
+                num["seconds"] = time.perf_counter() - t_run
+                runs[label] = num
+                del r, s
+        shutil.rmtree(io_root, ignore_errors=True)
+        # (a') auto-streaming: without ooc, a pool above the card's free
+        # memory (patched to a third of it) streams under 0.8 of it, with
+        # no device refinement loop; the peaks stay within that memory
+        gc.collect()
+        t_run = time.perf_counter()
+        A = poisson_3d(auto_nx)
+        label = f"LLT bf16 poisson_3d({auto_nx}) auto-streamed"
+        cfg = PastixConfig(tile_size=128, update_dtype="bfloat16")
+        p = Pastix(A, cfg, device=dev)
+        p.order()
+        p.symbfact()
+        free_mb = max(1, p._build_layout(False).npool * 128 ** 2 * 4
+                      // 3 // 2 ** 20)
+        del p
+        real_free = Pastix._free_device_bytes
+        Pastix._free_device_bytes = lambda self: free_mb << 20
+        try:
+            s, num = streamed_run(label, A, cfg, dev, ("K3",), rest, free_mb)
+        finally:
+            Pastix._free_device_bytes = real_free
+        if s.config.ooc or s._refine_fn is not None or num["segments"] < 3:
+            raise AssertionError(f"{label}: not auto-streamed, fewer than 3 "
+                                 "segments, or a device refinement loop")
+        num["seconds"] = time.perf_counter() - t_run
+        runs[label] = num
+        del s
+        # (b) full width: the flagship LLᵗ streamed under big_mb
+        gc.collect()
+        t_run = time.perf_counter()
+        label = f"LLT bf16 poisson_3d({big_nx})"
+        cfg = PastixConfig(tile_size=128, update_dtype="bfloat16", ooc=True,
+                           ooc_limit_mb=big_mb)
+        s, num = streamed_run(label, poisson_3d(big_nx), cfg, dev, ("K3",),
+                              rest, big_mb)
+        num["seconds"] = time.perf_counter() - t_run
+        log(f"ooc {label}: {num['seconds']:.1f} s in all")
+        runs[label] = num
+        del s
+        # (c) offload: Schur unknowns cannot stream, so with a limit below
+        # the pool the resident factors leave the card; solve_with_schur
+        # restores them for K2
+        gc.collect()
+        A = poisson_3d(24)
+        label = "LLT bf16 poisson_3d(24) Schur, offloaded"
+        cfg = PastixConfig(tile_size=128, update_dtype="bfloat16", ooc=True,
+                           ooc_limit_mb=1)
+        reset_counts()
+        s, _ = analyzed(A, cfg, dev, schur=last_plane(24))
+        base = torch.cuda.memory_allocated(dev)
+        s.factorize()
+        fl = read_counts(f"{label}: factorize", ("K1",), ("K2",))
+        held = torch.cuda.memory_allocated(dev) - base
+        pool_b = s.factors.pool.numel() * 4
+        if not s.factors.offloaded or s.factors.pool.device.type != "cpu":
+            raise AssertionError(f"{label}: the factors stayed on the card")
+        reset_counts()
+        M = A.to_scipy()
+        b = M @ np.ones(A.n)
+        x = s.solve_with_schur(b)
+        sl = read_counts(f"{label}: solve_with_schur", ("K2",), ("K1",))
+        res = float(np.linalg.norm(b - M @ x) / np.linalg.norm(b))
+        runs[label] = num = {
+            "pool_mib": pool_b / 2 ** 20,
+            "held_after_factorize_mib": held / 2 ** 20,
+            "launches_fact": {k: v for k, v in fl.items() if v},
+            "launches_solve": {k: v for k, v in sl.items() if v},
+            "residual": res, "iters": s.report.refine_iters}
+        log(f"ooc {label}: " + json.dumps(num))
+        if held >= pool_b or not res <= TOL_RES:
+            raise AssertionError(f"{label}: the pool stayed on the card or "
+                                 f"the residual {res:.3e} is above {TOL_RES}")
+        del s
+    finally:
+        shutil.rmtree(io_root, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    runs["seconds"] = seconds
+    log(f"phase 19: {seconds:.1f} s")
+    return runs
+
+
 def sass_count(build, kernel, ops, also=None):
     """How many of each SASS opcode of ``ops`` the library's ``kernel``
     functions hold (``cuobjdump -sass``, run once a library; ``also``:
@@ -2944,6 +3383,11 @@ def main() -> int:
                          "n = 343,000)")
     ap.add_argument("--ldlt-nx", type=int, default=64,
                     help="LDLT path: poisson_3d(nx) - sigma I (default 64)")
+    ap.add_argument("--ooc-nx", type=int, default=100,
+                    help="out-of-core at full width: poisson_3d(nx) "
+                         "streamed (default 100, n = 1,000,000)")
+    ap.add_argument("--ooc-mb", type=int, default=4096,
+                    help="its ooc_limit_mb (default 4096)")
     args = ap.parse_args()
 
     import torch
@@ -3156,6 +3600,11 @@ def main() -> int:
         {"LLT": main_num, "LU": lu_num, "LDLT": ldlt_num}, errs)
     elapsed("phase 18")
 
+    # 19. out-of-core: the streamed factorization and solve, the offload
+    ooc = ooc_path(args.nx, args.lu_nx, args.ldlt_nx, args.ooc_nx,
+                   args.ooc_mb, dev)
+    elapsed("phase 19")
+
     # no single PyTorch call computes a gather-GEMM-scatter over a pair
     # list or a block-sparse triangular sweep: library_ms is null but for
     # K4 LU (lu_factor_ex without pivoting) and K13 (index_select of the
@@ -3291,6 +3740,8 @@ def main() -> int:
         log(f"path precision {label}: " + json.dumps(num))
     for label, num in ilu_packed.items():
         log(f"path ilu/packed {label}: " + json.dumps(num))
+    for label, num in ooc.items():
+        log(f"path ooc {label}: " + json.dumps(num))
     for T, (ms, plain, bd, lib, dev_ms, dev_lib) in k8_one.items():
         log(f"K8 one tile T={T}: " + json.dumps(
             {"ms": ms, "plain_ms": plain, "bound_ms": bd[0],

@@ -79,11 +79,13 @@ _PIPE_GROUP, _PIPE_CHUNK = 2, 8192
 
 
 def build_coefinit_fn(layout: SolverLayout, A_pattern: sp.spmatrix, device,
-                      for_lu: bool = False, dtype=torch.float32):
+                      for_lu: bool = False, dtype=torch.float32,
+                      pin_memory: bool = False):
     """Device coefinit: ``fn(vals) -> pool`` (``(pool, pool_u)`` with
     ``for_lu``) with ``vals`` the COO data of ``A_pattern``
     (``sp.coo_matrix(A_perm).data``) as a tensor on ``device``, the pools
-    in ``dtype`` (``fn.dtype``).
+    in ``dtype`` (``fn.dtype``; on the CPU in pinned memory with
+    ``pin_memory``, which the streamed factorization copies from).
     The flat scatter indices are built once per pattern; entries land in
     the pool with an accumulating ``index_put_`` and the padded diagonal
     is set to 1 (reference ``build_coefinit_fn``).  Symmetric kinds keep
@@ -108,7 +110,8 @@ def build_coefinit_fn(layout: SolverLayout, A_pattern: sp.spmatrix, device,
     numel = layout.npool * T * T
 
     def scatter(vals, sel, idx):
-        pool = torch.zeros(numel, dtype=dtype, device=device)
+        pool = torch.zeros(numel, dtype=dtype, device=device,
+                           pin_memory=pin_memory)
         pool.index_put_((idx,), vals[sel].to(dtype), accumulate=True)
         return pool
 
@@ -122,6 +125,18 @@ def build_coefinit_fn(layout: SolverLayout, A_pattern: sp.spmatrix, device,
 
     fn.dtype = dtype
     return fn
+
+
+def coefinit(layout: SolverLayout, A_perm: sp.spmatrix, dtype=torch.float32,
+             for_lu: bool = False):
+    """Host coefinit (reference ``coefinit``): (pool, pool_u) as tensors
+    in host memory (``pool_u`` None unless ``for_lu``), A's values
+    scattered as :func:`build_coefinit_fn` scatters them on a device.
+    The streamed factorization (``numeric/ooc``) starts from it."""
+    fn = build_coefinit_fn(layout, A_perm, torch.device("cpu"), for_lu, dtype)
+    pools = fn(torch.as_tensor(sp.coo_matrix(A_perm).data.astype(
+        np_dtype(dtype))))
+    return pools if for_lu else (pools, None)
 
 
 @dataclasses.dataclass
@@ -141,6 +156,11 @@ class Factors:
     dinv_u: Optional[torch.Tensor] = None  # (nbc, T, T) inverse upper (LU)
     n_static_pivots: int = 0
     hermitian: bool = False
+    # the pools are in host memory: moved there after the factorization
+    # (offloaded) or factored there segment by segment (streamed,
+    # numeric/ooc); a solve brings them to the card or streams them
+    offloaded: bool = False
+    streamed: bool = False
 
     @property
     def dtype(self) -> torch.dtype:
@@ -228,16 +248,141 @@ def fused_diag_gate(kind, fused_diag=None) -> bool:
     return bool(fused_diag)
 
 
-def _llt_diag(pool: torch.Tensor, lv, fused: bool):
-    """An LLᵗ level's DIAG: its diagonal tiles become L in place; returns
-    the transposed inverses for the panel TRSM (None without panels).
-    Fused, a level with panels is one launch of K7; otherwise, as the
-    reference without its gate, ``cholesky_ex`` and a triangular solve."""
-    if fused and lv.tp.numel():
-        return chol_inv_pool(pool, lv.diag).transpose(1, 2)
-    L = potrf_batch(pool[lv.diag])
-    pool[lv.diag] = L
-    return tri_inv_batch(L).transpose(1, 2) if lv.tp.numel() else None
+class Workspace:
+    """Fixed memory for :func:`diag_trsm`'s gathers, allocated once where
+    a budget bounds them (the streamed segments, ``numeric/ooc``): (a, b,
+    c) of ``ct`` tiles each (a TRSM chunk's panels, their inverses, their
+    product), (g1, g2, g3) of ``g`` tiles each (a group's diagonal tiles,
+    their factor or inverses), the ``cholesky_ex`` info and the
+    identity.  Without one, :func:`diag_trsm` allocates what each call
+    needs."""
+
+    def __init__(self, ct: int, g: int, T: int, dtype, device):
+        tiles = lambda n: torch.empty((n, T, T), dtype=dtype, device=device)
+        self.a, self.b, self.c = tiles(ct), tiles(ct), tiles(ct)
+        self.g1, self.g2, self.g3 = tiles(g), tiles(g), tiles(g)
+        self.info = torch.empty(g, dtype=torch.int32, device=device)
+        self.eye = torch.eye(T, dtype=dtype, device=device)
+
+
+def diag_trsm(kind, lv, pool, pool_u=None, d=None, npiv=None, eps=0.0, *,
+              fused=False, chunk=None, work=None, xs=None) -> None:
+    """The DIAG and panel TRSM of a level, or of a group of its columns
+    (``lv``: ``cols``, ``diag``, ``tp``, ``tcpos``, ``tc``), on the fp32
+    route, in place: the diagonal tiles (LLᵗ ``cholesky_ex``, a broken
+    tile turned NaN as ``kernels.potrf_batch`` makes it, or one launch
+    of K7 when ``fused``; LDLᵗ and LU kernel K4, LDLᵗ's pivots into
+    ``d[lv.cols]``, the clamps counted in ``npiv``), their inverses, then
+    the panels times the inverses, ``chunk`` panels at a time (default
+    ``_PANEL_CHUNK``): LLᵗ ``L = A L⁻ᵗ``, LDLᵗ ``L = A L⁻ᵗ D⁻¹``, LU ``L =
+    A U⁻¹`` and ``Ut = Aᵗ L⁻ᵗ`` (into ``pool_u``).  The gathers go through
+    ``work`` (:class:`Workspace`) or tensors of their size; ``xs`` (the
+    stream schedule) takes each side's panels, in panel order."""
+    n, nt = lv.diag.numel(), lv.tp.numel()
+    T, dt, dev = pool.shape[-1], pool.dtype, pool.device
+    tiles = lambda name, m: (getattr(work, name)[:m] if work is not None
+                             else torch.empty((m, T, T), dtype=dt, device=dev))
+    if kind == Factorization.LLT and fused and nt:
+        sides = [(pool, chol_inv_pool(pool, lv.diag).transpose(1, 2), None)]
+    else:
+        G1, G3 = tiles("g1", n), tiles("g3", n)
+        eye = (work.eye if work is not None
+               else torch.eye(T, dtype=dt, device=dev)).expand(n, -1, -1)
+        if kind == Factorization.LLT:
+            G2 = tiles("g2", n)
+            torch.index_select(pool, 0, lv.diag, out=G1)
+            info = (work.info[:n] if work is not None
+                    else torch.empty(n, dtype=torch.int32, device=dev))
+            torch.linalg.cholesky_ex(G1, out=(G2, info))
+            G2.masked_fill_((info != 0)[:, None, None], float("nan"))
+            pool.index_copy_(0, lv.diag, G2)
+            if not nt:
+                return
+            torch.linalg.solve_triangular(G2, eye, upper=False, out=G3)
+            sides = [(pool, G3.transpose(1, 2), None)]
+        else:
+            piv = tile_factor(pool, lv.diag, eps, npiv,
+                              lu=kind == Factorization.LU)
+            if kind == Factorization.LDLT:
+                d[lv.cols] = piv
+            if not nt:
+                return
+            torch.index_select(pool, 0, lv.diag, out=G1)
+            torch.linalg.solve_triangular(G1, eye, upper=False,
+                                          unitriangular=True, out=G3)
+            if kind == Factorization.LDLT:
+                sides = [(pool, G3.transpose(1, 2), d)]
+            else:
+                G2 = tiles("g2", n)
+                torch.linalg.solve_triangular(G1, eye, upper=True, out=G2)
+                sides = [(pool, G2, None), (pool_u, G3.transpose(1, 2), None)]
+    step = chunk or _PANEL_CHUNK
+    for lo in range(0, nt, step):
+        sl = slice(lo, lo + step)
+        p, q, c = lv.tp[sl], lv.tcpos[sl], lv.tc[sl]
+        m = p.numel()
+        A, B, C = tiles("a", m), tiles("b", m), tiles("c", m)
+        for i, (side, inv, dd) in enumerate(sides):
+            torch.index_select(side, 0, p, out=A)
+            torch.index_select(inv, 0, q, out=B)
+            torch.bmm(A, B, out=C)
+            if dd is not None:
+                C.div_(dd[c][:, None, :])
+            side.index_copy_(0, p, C)
+            if xs is not None:
+                xs[i][sl] = C
+
+
+def plain_diag_trsm(kind, lv, pool, pool_u=None, d=None, npiv=None, eps=0.0,
+                    hermitian=False, chunk=None) -> None:
+    """:func:`diag_trsm` of the other pools (fp64, complex), by the torch
+    ops of ``numeric/kernels``: ``potrf_batch`` (the unconjugated loop
+    for complex-symmetric LLᵗ), ``ldlt_batch`` or ``getrf_batch``, then
+    ``trsm_*`` (``hermitian``: LLᴴ, LDLᴴ), ``chunk`` panels at a time
+    (default ``_PANEL_CHUNK``).  ``eps`` in the pool's precision."""
+    step = chunk or _PANEL_CHUNK
+    chunks = [(lv.tp[lo:lo + step], lv.tcpos[lo:lo + step],
+               lv.tc[lo:lo + step]) for lo in range(0, lv.tp.numel(), step)]
+    if kind == Factorization.LLT:
+        L = potrf_batch(pool[lv.diag], hermitian=hermitian)
+        pool[lv.diag] = L
+        for tp, tcpos, _ in chunks:
+            pool[tp] = trsm_llt(pool[tp], L[tcpos], hermitian)
+    elif kind == Factorization.LU:
+        M, n = getrf_batch(pool[lv.diag], eps)
+        pool[lv.diag] = M
+        npiv += n
+        for tp, tcpos, _ in chunks:
+            pool[tp] = trsm_lu_l(pool[tp], M[tcpos])
+            pool_u[tp] = trsm_lu_u(pool_u[tp], M[tcpos])
+    else:
+        # L(I, J) = A(I, J) L⁻ᵗ D⁻¹ (L⁻ᴴ for LDLᴴ)
+        L, dl, n = ldlt_batch(pool[lv.diag], eps, hermitian)
+        pool[lv.diag] = L
+        d[lv.cols] = dl
+        npiv += n
+        for tp, tcpos, tc in chunks:
+            pool[tp] = trsm_ldlt(pool[tp], L[tcpos], d[tc], hermitian)
+
+
+def plain_update(pool, inc, update_dtype, d=None, hermitian=False,
+                 src_pool=None, step=None) -> None:
+    """The updates ``inc`` = (ga, gb, gd, gk) into ``pool`` by the torch
+    ops of ``numeric/kernels``, ``step`` triples at a time (default
+    ``kernels.chunk_len``): ``gemm_scatter`` (LDLᵗ, LDLᴴ: a scaled by
+    ``d[gk]``), or with ``src_pool`` (LU) ``gemm_scatter_ab`` with b from
+    it."""
+    ga, gb, gd, gk = inc
+    step = step or chunk_len(pool)
+    for lo in range(0, ga.numel(), step):
+        sl = slice(lo, lo + step)
+        if src_pool is not None:
+            gemm_scatter_ab(pool, pool, src_pool, ga[sl], gb[sl], gd[sl],
+                            update_dtype)
+        else:
+            gemm_scatter(pool, ga[sl], gb[sl], gd[sl], update_dtype,
+                         None if d is None else d[gk[sl]],
+                         hermitian=hermitian)
 
 
 @dataclasses.dataclass
@@ -268,18 +413,10 @@ class _Level:
     # block or slab plan's fallback pairs (p_fb)
 
 
-def panels(lv):
-    """(tp, tcpos, tc) of a level's panel tiles, in chunks of
-    ``_PANEL_CHUNK``."""
-    for lo in range(0, lv.tp.numel(), _PANEL_CHUNK):
-        sl = slice(lo, lo + _PANEL_CHUNK)
-        yield lv.tp[sl], lv.tcpos[sl], lv.tc[sl]
-
-
 def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
                        update_dtype=None, dense_tail=None, e2=None,
                        fused_diag=None, dtype=torch.float32, hermitian=None,
-                       packed_plan=None):
+                       packed_plan=None, ooc_plan=None):
     """The program of ``kind`` for this pattern, in place on the pools,
     where the reference donates them to its jitted program:
 
@@ -320,7 +457,14 @@ def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
     levels) takes the packed E2 path of every dtype,
     ``numeric.packed.build_packed_fn``; it reads neither ``PASTIX_E2_*``
     nor ``PASTIX_FUSED_DIAG``, and an explicit ``e2`` or
-    ``fused_diag=True`` with it raises ``ValueError``."""
+    ``fused_diag=True`` with it raises ``ValueError``.
+
+    ``ooc_plan`` (``numeric.ooc.plan_ooc`` over the layout's levels)
+    takes the streamed program, ``numeric.ooc.build_streamed_fn``: the
+    same signatures on pools in host memory, each segment run on
+    ``device``; it reads neither variable either, and an ``e2`` other
+    than ``"pair"``, ``fused_diag=True`` or a dense tail with it raises
+    ``ValueError``."""
     kind = Factorization(kind)
     if kind == Factorization.LDLH and not dtype.is_complex:
         kind = Factorization.LDLT
@@ -331,6 +475,15 @@ def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
             f"update_dtype={update_dtype} with a {dtype} pool: rounding "
             "drops the imaginary part (the reference's astype does); a "
             "complex pool takes no update dtype")
+    if ooc_plan is not None:
+        from pastix_tpu_torch.numeric.ooc import build_streamed_fn
+
+        if dense_tail is not None or packed_plan is not None:
+            raise ValueError("a streamed factorization has no dense tail "
+                             "and no packed plan")
+        return build_streamed_fn(layout, ooc_plan, device, kind,
+                                 update_dtype, dtype, hermitian, e2,
+                                 fused_diag)
     if packed_plan is not None:
         return build_packed_fn(layout, device, kind, update_dtype, dense_tail,
                                packed_plan, dtype, hermitian, e2, fused_diag)
@@ -408,10 +561,7 @@ def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
         for lv in plan:
             if lv.ll:
                 gemm_scatter_ll(pool, lv.ll, update_dtype)
-            dinv_t = _llt_diag(pool, lv, fused)
-            if lv.tp.numel():
-                for tp, tcpos, _ in panels(lv):
-                    pool[tp] = torch.matmul(pool[tp], dinv_t[tcpos])
+            diag_trsm(kind, lv, pool, fused=fused)
             if lv.schur:
                 gemm_scatter_pipelined(pool, lv.schur, update_dtype,
                                        compact=compact)
@@ -427,13 +577,7 @@ def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
         for lv in plan:
             if lv.ll:
                 gemm_scatter_ll(pool, lv.ll, update_dtype, d=d)
-            d[lv.cols] = tile_factor(pool, lv.diag, eps, npiv, lu=False)
-            if lv.tp.numel():
-                # L(I, J) = A(I, J) L⁻ᵗ D⁻¹
-                linv_t = tri_inv_batch(pool[lv.diag], unit=True).transpose(1, 2)
-                for tp, tcpos, tc in panels(lv):
-                    pool[tp] = (torch.matmul(pool[tp], linv_t[tcpos])
-                                / d[tc][:, None, :])
+            diag_trsm(kind, lv, pool, d=d, npiv=npiv, eps=eps)
             if lv.schur:
                 gemm_scatter_pipelined(pool, lv.schur, update_dtype, d=d,
                                        compact=compact)
@@ -448,14 +592,7 @@ def build_factorize_fn(layout: SolverLayout, device, kind=Factorization.LLT,
                 gemm_scatter_ll(pool, lv.ll, update_dtype, src_pool=pool_u)
             if lv.ll_nd:
                 gemm_scatter_ll(pool_u, lv.ll_nd, update_dtype, src_pool=pool)
-            tile_factor(pool, lv.diag, eps, npiv, lu=True)
-            if lv.tp.numel():
-                D = pool[lv.diag]
-                uinv = tri_inv_batch(D, upper=True)
-                linv_t = tri_inv_batch(D, unit=True).transpose(1, 2)
-                for tp, tcpos, _ in panels(lv):
-                    pool[tp] = torch.matmul(pool[tp], uinv[tcpos])
-                    pool_u[tp] = torch.matmul(pool_u[tp], linv_t[tcpos])
+            diag_trsm(kind, lv, pool, pool_u, npiv=npiv, eps=eps)
             if lv.schur:
                 gemm_scatter_pipelined(pool, lv.schur, update_dtype,
                                        src_pool=pool_u, compact=compact)
@@ -566,21 +703,13 @@ def _build_right_looking(layout, device, kind, update_dtype, dense_tail,
     k3 = lambda pool, chunks, **kw: gemm_scatter_pipelined(
         pool, chunks, update_dtype, **kw)
 
-    def trsm(lv, sides):
-        """Panel TRSM of each (pool, fn(tp, tcpos, tc) -> panels) in
-        ``sides``, in chunks of _PANEL_CHUNK panels; in stream mode also
-        the bf16 panel streams, in the level's panel order."""
-        nt = lv.tp.numel()
-        xs = [torch.empty((nt, T, T), dtype=update_dtype, device=lv.tp.device)
-              for _ in sides] if stream else None
-        for lo in range(0, nt, _PANEL_CHUNK):
-            sl = slice(lo, lo + _PANEL_CHUNK)
-            tp, tcpos, tc = lv.tp[sl], lv.tcpos[sl], lv.tc[sl]
-            for i, (pool, panel) in enumerate(sides):
-                P = panel(tp, tcpos, tc)
-                pool[tp] = P
-                if stream:
-                    xs[i][sl] = P.to(update_dtype)
+    def diag_level(lv, pool, pool_u=None, d=None, npiv=None, eps=0.0):
+        """:func:`diag_trsm` of the level; in stream mode also the bf16
+        panel streams (one a side, LU two), which it returns."""
+        xs = [torch.empty((lv.tp.numel(), T, T), dtype=update_dtype,
+                          device=pool.device)
+              for _ in range(2 if is_lu else 1)] if stream else None
+        diag_trsm(kind, lv, pool, pool_u, d, npiv, eps, fused=fused, xs=xs)
         return xs
 
     def e2_level(lv, pool, xs=None, d=None, pool_u=None):
@@ -607,10 +736,8 @@ def _build_right_looking(layout, device, kind, update_dtype, dense_tail,
 
     def fact_llt(pool: torch.Tensor) -> torch.Tensor:
         for lv in plan:
-            dinv_t = _llt_diag(pool, lv, fused)
+            xs = diag_level(lv, pool)
             if lv.tp.numel():
-                xs = trsm(lv, [(pool, lambda tp, tcpos, tc: torch.matmul(
-                    pool[tp], dinv_t[tcpos]))])
                 e2_level(lv, pool, xs)
         if tail_factor is not None:
             tail_factor(pool)
@@ -620,30 +747,17 @@ def _build_right_looking(layout, device, kind, update_dtype, dense_tail,
         d = torch.ones((nbc, T), dtype=pool.dtype, device=pool.device)
         npiv = torch.zeros((), dtype=torch.int32, device=pool.device)
         for lv in plan:
-            d[lv.cols] = tile_factor(pool, lv.diag, eps, npiv, lu=False)
+            xs = diag_level(lv, pool, d=d, npiv=npiv, eps=eps)
             if lv.tp.numel():
-                # L(I, J) = A(I, J) L⁻ᵗ D⁻¹
-                linv_t = tri_inv_batch(pool[lv.diag], unit=True).transpose(1, 2)
-                xs = trsm(lv, [(pool, lambda tp, tcpos, tc: torch.matmul(
-                    pool[tp], linv_t[tcpos]) / d[tc][:, None, :])])
                 e2_level(lv, pool, xs, d=d)
         return pool, d, npiv
 
     def fact_lu(pool: torch.Tensor, pool_u: torch.Tensor, eps: float):
         npiv = torch.zeros((), dtype=torch.int32, device=pool.device)
         for lv in plan:
-            tile_factor(pool, lv.diag, eps, npiv, lu=True)
+            # L = A U⁻¹ and Ut = Aᵗ L⁻ᵗ; then A(I, K) -= L(I, J) U(J, K)
+            xs = diag_level(lv, pool, pool_u, npiv=npiv, eps=eps)
             if lv.tp.numel():
-                D = pool[lv.diag]
-                uinv = tri_inv_batch(D, upper=True)
-                linv_t = tri_inv_batch(D, unit=True).transpose(1, 2)
-                # L = A U⁻¹ and Ut = Aᵗ L⁻ᵗ; then A(I, K) -= L(I, J) U(J, K)
-                xs = trsm(lv, [
-                    (pool, lambda tp, tcpos, tc: torch.matmul(
-                        pool[tp], uinv[tcpos])),
-                    (pool_u, lambda tp, tcpos, tc: torch.matmul(
-                        pool_u[tp], linv_t[tcpos])),
-                ])
                 e2_level(lv, pool, xs, pool_u=pool_u)
         return pool, pool_u, npiv
 
@@ -756,7 +870,7 @@ def _build_plain(layout, device, kind, update_dtype, dense_tail, e2,
             tc=tens(lv.trsm_col),
             tcpos=tens(np.searchsorted(lv.cols, lv.trsm_col)),
             inc=tuple(map(tens, (ga, gb, gd, gk))) if ga.size else (),
-            inc_nd=(tuple(map(tens, (ga[nd], gb[nd], gd[nd])))
+            inc_nd=(tuple(map(tens, (ga[nd], gb[nd], gd[nd]))) + (None,)
                     if is_lu and nd.any() else ()),
         ))
     tail_inc = (tuple(map(tens, tail[:3]))
@@ -769,26 +883,14 @@ def _build_plain(layout, device, kind, update_dtype, dense_tail, e2,
     # the clamp threshold as the reference holds it: in the pool's precision
     f_eps = lambda eps: float(torch.tensor(eps, dtype=dtype.to_real()))
 
-    def update(pool, inc, d=None):
-        """The updates ``inc`` = (ga, gb, gd, gk) into ``pool``, in chunks
-        (LDLᵗ/LDLᴴ: a scaled by ``d[gk]``)."""
-        ga, gb, gd, gk = inc
-        step = chunk_len(pool)
-        for lo in range(0, ga.numel(), step):
-            sl = slice(lo, lo + step)
-            gemm_scatter(pool, ga[sl], gb[sl], gd[sl], update_dtype,
-                         None if d is None else d[gk[sl]], hermitian=herm)
-
     def fact_llt(pool: torch.Tensor) -> torch.Tensor:
         for lv in plan:
             if lv.inc:
-                update(pool, lv.inc)
-            L = potrf_batch(pool[lv.diag], hermitian=herm)
-            pool[lv.diag] = L
-            for tp, tcpos, _ in panels(lv):
-                pool[tp] = trsm_llt(pool[tp], L[tcpos], herm)
+                plain_update(pool, lv.inc, update_dtype, hermitian=herm)
+            plain_diag_trsm(kind, lv, pool, hermitian=herm)
         if tail_inc:
-            update(pool, tail_inc + (None,))
+            plain_update(pool, tail_inc + (None,), update_dtype,
+                         hermitian=herm)
         if tail_factor is not None:
             tail_factor(pool)
         return pool
@@ -799,14 +901,9 @@ def _build_plain(layout, device, kind, update_dtype, dense_tail, e2,
         npiv = torch.zeros((), dtype=torch.int32, device=pool.device)
         for lv in plan:
             if lv.inc:
-                update(pool, lv.inc, d)
-            L, dl, n = ldlt_batch(pool[lv.diag], eps, herm)
-            pool[lv.diag] = L
-            d[lv.cols] = dl
-            npiv += n
-            # L(I, J) = A(I, J) L⁻ᵗ D⁻¹ (L⁻ᴴ for LDLᴴ)
-            for tp, tcpos, tc in panels(lv):
-                pool[tp] = trsm_ldlt(pool[tp], L[tcpos], d[tc], herm)
+                plain_update(pool, lv.inc, update_dtype, d, herm)
+            plain_diag_trsm(kind, lv, pool, d=d, npiv=npiv, eps=eps,
+                            hermitian=herm)
         return pool, d, npiv
 
     def fact_lu(pool: torch.Tensor, pool_u: torch.Tensor, eps: float):
@@ -816,18 +913,10 @@ def _build_plain(layout, device, kind, update_dtype, dense_tail, e2,
             # A(I, K) -= L(I, J) U(J, K) into the L pool (b = Ut tiles),
             # then the Ut-side mirror for off-diagonal targets
             if lv.inc:
-                ga, gb, gd, _ = lv.inc
-                gemm_scatter_ab(pool, pool, pool_u, ga, gb, gd, update_dtype)
+                plain_update(pool, lv.inc, update_dtype, src_pool=pool_u)
             if lv.inc_nd:
-                gemm_scatter_ab(pool_u, pool_u, pool, *lv.inc_nd,
-                                update_dtype)
-            M, n = getrf_batch(pool[lv.diag], eps)
-            pool[lv.diag] = M
-            npiv += n
-            # L = A U⁻¹ and Ut = Aᵗ L⁻ᵗ
-            for tp, tcpos, _ in panels(lv):
-                pool[tp] = trsm_lu_l(pool[tp], M[tcpos])
-                pool_u[tp] = trsm_lu_u(pool_u[tp], M[tcpos])
+                plain_update(pool_u, lv.inc_nd, update_dtype, src_pool=pool)
+            plain_diag_trsm(kind, lv, pool, pool_u, npiv=npiv, eps=eps)
         return pool, pool_u, npiv
 
     fn = {Factorization.LLT: fact_llt, Factorization.LDLT: fact_ldlt,

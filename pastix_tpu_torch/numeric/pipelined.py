@@ -220,14 +220,17 @@ def piece_fields(seg_ptr, n_pairs, ctas, tens, cuts=None) -> dict:
             "nslot": nslot}
 
 
-def pipeline_plan(schedule, device) -> list:
+def pipeline_plan(schedule, device, ctas=None) -> list:
     """Kernel tables (:class:`PipeChunk`) of a
     :func:`build_pipeline_schedule` result, uploaded to ``device``, the
-    pieces cut for its card (``leftlook.piece_ctas``).
+    pieces cut for its card (``leftlook.piece_ctas``; ``ctas`` cuts them
+    for another device's, tables kept on the host for it:
+    :func:`move_chunks`).
 
     A dst segment cut by a chunk boundary lands in two chunks; the
     chunks run in order, so the second reads what the first wrote."""
-    ctas = piece_ctas(device)
+    if ctas is None:
+        ctas = piece_ctas(device)
     out = []
     for t in schedule:
         valid = (np.asarray(t["flags"]) & _F_VALID) != 0
@@ -262,6 +265,14 @@ def pipeline_plan(schedule, device) -> list:
             **piece_fields(seg_ptr, gd.size, ctas, tens),
         ))
     return out
+
+
+def move_chunks(chunks, device) -> list:
+    """The chunks (:class:`PipeChunk`) with their tables on ``device``."""
+    return [dataclasses.replace(c, **{
+        f.name: getattr(c, f.name).to(device)
+        for f in dataclasses.fields(c)
+        if isinstance(getattr(c, f.name), torch.Tensor)}) for c in chunks]
 
 
 def _operands(pool, src, c, update_dtype, xab, compact, ab_pack):

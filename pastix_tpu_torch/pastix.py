@@ -24,11 +24,17 @@ analysis change what is built: ``packed_update`` (the packed E2 path,
 ``numeric/packed.py``, any dtype) and ``incomplete`` (ILU(k): block ILU
 factors an incomplete tile layout on the same routes; ``ilu_grain=
 "scalar"`` factors on the host, ``analyze/scalar_ilu.py``, and builds no
-device program).
+device program).  Out-of-core (``ooc``, ``ooc_limit_mb``; pools larger
+than the card's free memory without being asked) streams the
+factorization and the solve segment by segment through the card, the
+pools in host memory (``numeric/ooc.py``), on the route of the dtype;
+with ``ooc``, resident factors larger than the limit leave the card
+after the factorization.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 import time
@@ -67,6 +73,9 @@ from pastix_tpu_torch.numeric.factorize import (
     build_factorize_fn,
     factorize as numeric_factorize,
 )
+from pastix_tpu_torch.numeric.ooc import (
+    build_streamed_solve_fn, plan_ooc, reset_io,
+)
 from pastix_tpu_torch.refine import refine as refine_fn, refine_block
 from pastix_tpu_torch.solve import (
     blocks_to_rhs,
@@ -80,6 +89,10 @@ from pastix_tpu_torch.solve import (
 
 _UPDATE_DTYPES = {None: None, "float32": torch.float32,
                   "bfloat16": torch.bfloat16}
+# the share of the card's free memory an auto-streamed plan takes: the
+# rest is left to the solve's right-hand sides, the pivots and the
+# allocator's rounding (the reference plans 13 GiB of a 16 GiB card)
+_AUTO_OOC_SHARE = 0.8
 _COMPUTE_DTYPES = {"float32": torch.float32, "float64": torch.float64,
                    "complex64": torch.complex64,
                    "complex128": torch.complex128}
@@ -152,8 +165,6 @@ def _check_config(cfg: PastixConfig) -> None:
             "reference's astype does); a complex pool takes no update dtype")
     if cfg.schur:
         _check_schur(cfg)
-    if cfg.ooc:
-        raise _not_ported("out-of-core", "slice 4")
     if cfg.mesh_shape is not None:
         raise _not_ported("mesh_shape (multi-device)", "slice 5")
     if cfg.trace:
@@ -185,6 +196,7 @@ class Pastix:
         self._schur_first_bcol: Optional[int] = None
         self._refine_fn = None  # the device refinement loop, if it runs
         self._ell = None  # its fp64 ELL matrix of A_perm
+        self._ooc_plan = None  # numeric.ooc.OOCPlan, if streamed
         if A is not None:
             self.set_matrix(A)
 
@@ -504,9 +516,42 @@ class Pastix:
     # ------------------------------------------------------------------
 
     def _free_device_bytes(self) -> Optional[int]:
+        """The bytes a device allocation could take (the card's free
+        memory and what PyTorch's allocator holds unused); None on the
+        CPU."""
         if self.device.type != "cuda":
             return None
-        return int(torch.cuda.mem_get_info(self.device)[0])
+        return int(torch.cuda.mem_get_info(self.device)[0]
+                   + torch.cuda.memory_reserved(self.device)
+                   - torch.cuda.memory_allocated(self.device))
+
+    def _build_layout(self, tail: bool) -> SolverLayout:
+        """The tile layout of the analysis (with the dense tail's fill
+        when ``tail``), saved under ``IOStrategy.SAVE``."""
+        cfg = self.config
+        lay = build_layout(
+            self._pat_perm_ext,
+            self._tile_size,
+            for_lu=self._kind == Factorization.LU,
+            schur_first_bcol=self._schur_first_bcol,
+            incomplete=cfg.incomplete,
+            level_of_fill=cfg.level_of_fill,
+            densify_tail_frac=cfg.dense_tail_fill if tail else 0.0,
+        )
+        if cfg.io_strategy == IOStrategy.SAVE:
+            lay.save(os.path.join(cfg.io_dir, "layoutname"))
+        return lay
+
+    def _can_stream(self) -> bool:
+        """Whether the factorization can stream (the reference's rule):
+        Hermitian (or real) LLᵗ, LDLᵗ, LDLᴴ and LU, no Schur unknowns, not
+        incomplete."""
+        kind = self._kind
+        return (((kind == Factorization.LLT and self._hermitian)
+                 or kind in (Factorization.LDLT, Factorization.LDLH,
+                             Factorization.LU))
+                and self._schur_first_bcol is None
+                and not self.config.incomplete)
 
     def analyze(self) -> SolverLayout:
         """Tile layout, dense-tail plan, and every device table: coefinit
@@ -540,7 +585,25 @@ class Pastix:
         factors on the host.  ``packed_update=True`` or ``PASTIX_PACKED``
         (not ``0``) builds the packed plan (``analyze.packed``) over the
         levels that run, and the factorization takes the packed E2 path
-        (the reference's gate ``:624-646``)."""
+        (the reference's gate ``:624-646``).
+
+        Out-of-core (the reference's ``:398-560``): with ``ooc`` and an
+        ``ooc_limit_mb`` the pools exceed, the factorization streams
+        (``numeric/ooc``: ``plan_ooc`` under that budget; the pools in
+        host memory, one segment's window and export slots on the card at
+        a time) and so does the solve; without ``ooc``, pools larger than
+        the card's free memory stream under ``_AUTO_OOC_SHARE`` of it
+        (auto-streaming).
+        Both need a kind that streams (:meth:`_can_stream`); a pool that
+        must stream but cannot raises ``MemoryError``.  A streamed
+        analysis has no dense tail (recovered, with ``ooc``, when the
+        pools fit the budget after all), no packed plan, no inverse
+        diagonal tiles and no device refinement loop: refinement runs the
+        host loop.  With ``ooc`` and resident pools the factors leave the
+        card after each factorization when they exceed ``ooc_limit_mb``
+        (always with a limit of 0) and a solve brings them back
+        (:meth:`_offload_factors`); the host loop refines there too.  The
+        device loop is built only for factors that stay on the card."""
         cfg = self.config
         if self.symbol_ is None:
             self.symbfact()
@@ -552,9 +615,13 @@ class Pastix:
         plain = dt != torch.float32
         itemsize = dt.itemsize
         is_lu = kind == Factorization.LU
-        use_tail = (cfg.dense_tail and self._schur_first_bcol is None
-                    and kind == Factorization.LLT and herm
-                    and not cfg.incomplete)
+        want_tail = (cfg.dense_tail and self._schur_first_bcol is None
+                     and kind == Factorization.LLT and herm
+                     and not cfg.incomplete)
+        # streaming is decided before the layout: its windows cannot hold
+        # the dense tail's (m, m) block
+        stream = cfg.ooc and cfg.ooc_limit_mb > 0 and self._can_stream()
+        use_tail = want_tail and not stream
         layout_path = os.path.join(cfg.io_dir, "layoutname")
         if cfg.io_strategy == IOStrategy.LOAD and os.path.exists(
             layout_path + ".npz"
@@ -563,27 +630,50 @@ class Pastix:
             self.layout = SolverLayout.load(layout_path)
             self.layout.check()
         else:
-            self.layout = build_layout(
-                self._pat_perm_ext,
-                self._tile_size,
-                for_lu=is_lu,
-                schur_first_bcol=self._schur_first_bcol,
-                incomplete=cfg.incomplete,
-                level_of_fill=cfg.level_of_fill,
-                densify_tail_frac=cfg.dense_tail_fill if use_tail else 0.0,
-            )
-            if cfg.io_strategy == IOStrategy.SAVE:
-                self.layout.save(layout_path)
-        lay = self.layout
-        T = lay.T
-        pool_bytes = lay.npool * T * T * itemsize * (2 if is_lu else 1)
+            self.layout = self._build_layout(use_tail)
+        T = self.layout.T
+        tile_bytes = T * T * itemsize
+        npools = 2 if is_lu else 1
+        pool_bytes = self.layout.npool * tile_bytes * npools
         free = self._free_device_bytes()
-        if free is not None and pool_bytes > free:
-            raise _not_ported(
-                f"{'two tile pools' if is_lu else 'a tile pool'} of "
-                f"{pool_bytes / 2**30:.2f} GiB on {dev} with "
-                f"{free / 2**30:.2f} GiB free (out-of-core)", "slice 4",
-            )
+        self._ooc_plan = None
+        if stream:
+            budget = cfg.ooc_limit_mb << 20
+            if pool_bytes > budget:
+                self._ooc_plan = plan_ooc(self.layout, budget, itemsize,
+                                          two_pools=is_lu)
+            elif want_tail:
+                # resident after all: recover the dense tail if its
+                # densified pool fits the budget too
+                tail_lay = self._build_layout(True)
+                if tail_lay.npool * tile_bytes <= budget:
+                    self.layout, use_tail = tail_lay, True
+        elif free is not None and pool_bytes > free:
+            if not self._can_stream():
+                raise MemoryError(
+                    f"{'two tile pools' if is_lu else 'a tile pool'} of "
+                    f"{pool_bytes / 2**30:.2f} GiB on {dev} with "
+                    f"{free / 2**30:.2f} GiB free, and this factorization "
+                    "cannot stream (Schur unknowns, incomplete, or "
+                    "complex-symmetric LLᵗ)")
+            # auto-streaming under a share of the card's free memory
+            budget = int(free * _AUTO_OOC_SHARE)
+            if use_tail:
+                self.layout, use_tail = self._build_layout(False), False
+            self._ooc_plan = plan_ooc(self.layout, budget, itemsize,
+                                      two_pools=is_lu)
+            if cfg.verbosity >= Verbosity.NO:
+                print(f"[pastix-tpu-torch] pool ({pool_bytes / 2**30:.1f} "
+                      f"GiB) exceeds the card's free memory "
+                      f"({free / 2**30:.1f} GiB): auto-streaming in "
+                      f"{len(self._ooc_plan.segments)} OOC segments")
+        plan = self._ooc_plan
+        if plan is not None and cfg.verbosity >= Verbosity.YES:
+            mf = plan.max_footprint_tiles()
+            print(f"[pastix-tpu-torch] ooc: {len(plan.segments)} segments, "
+                  f"max window {mf} tiles ({mf * tile_bytes / 2**20:.0f} "
+                  f"MB) under {budget >> 20} MB budget")
+        lay = self.layout
         self._dense_tail = None
         if use_tail:
             # the dense tail holds the (m, m) block plus about two
@@ -603,7 +693,7 @@ class Pastix:
         if env_packed is not None:
             packed_on = env_packed != "0"
         self._packed_plan = None
-        if packed_on and not cfg.incomplete:
+        if packed_on and not cfg.incomplete and plan is None:
             self._packed_plan = build_packed_plan(
                 lay, self._pat_perm_ext,
                 levels=(self._dense_tail.levels_lo
@@ -611,13 +701,22 @@ class Pastix:
                 for_lu=is_lu,
             )
         upd = _UPDATE_DTYPES[cfg.update_dtype]
-        self._coef_fn = build_coefinit_fn(lay, self._A_perm, dev,
-                                          for_lu=is_lu, dtype=dt)
+        # a streamed pool is assembled in host memory, pinned for the card
+        self._coef_fn = build_coefinit_fn(
+            lay, self._A_perm, dev if plan is None else torch.device("cpu"),
+            for_lu=is_lu, dtype=dt,
+            pin_memory=plan is not None and dev.type == "cuda")
         self._fact_fn = build_factorize_fn(
             lay, dev, kind, update_dtype=upd, dense_tail=self._dense_tail,
             dtype=dt, hermitian=herm, packed_plan=self._packed_plan,
+            ooc_plan=plan,
         )
-        if cfg.fast_solve and not plain:
+        if plan is not None:
+            self._fact_fn.verbose = cfg.verbosity >= Verbosity.YES
+            self._dinv_fn = self._fwd_fn = self._bwd_fn = None
+            self._solve_fn = build_streamed_solve_fn(lay, plan, dev, kind,
+                                                     dt, herm)
+        elif cfg.fast_solve and not plain:
             self._dinv_fn = build_diag_inverse_fn(lay, dev, kind)
             self._fwd_fn, self._bwd_fn = build_fwd_bwd_fns(lay, dev, kind)
             self._solve_fn = build_solve_fn_sweep(lay, dev, kind,
@@ -630,8 +729,10 @@ class Pastix:
                 lay, dev, kind, dt, herm)
             self._solve_fn = build_solve_fn(lay, dev, kind, dt, herm)
         self._refine_fn = self._ell = None
+        resident = plan is None and not self._offloads(
+            lay.npool * tile_bytes * npools)
         if (cfg.device_refine and cfg.fast_solve and not dt.is_complex
-                and cfg.refinement != RefinementMethod.NONE):
+                and cfg.refinement != RefinementMethod.NONE and resident):
             self._refine_fn = build_device_refine_fn(
                 lay, self._solve_fn, method=cfg.refinement,
                 restart=cfg.gmres_restart, dtype=dt,
@@ -718,7 +819,11 @@ class Pastix:
         ``report.static_pivots``.  ``values`` (same pattern, new numbers:
         ``A.values`` order) refactors on the cached analysis, with no host
         analysis again.  Scalar ILU (``ilu_grain="scalar"``) factors on the
-        host instead (:meth:`_factorize_scalar_ilu`)."""
+        host instead (:meth:`_factorize_scalar_ilu`).  A streamed analysis
+        assembles the pools in host memory and streams them through the
+        card (:meth:`_factorize_streamed`); with ``ooc``, resident factors
+        larger than ``ooc_limit_mb`` then leave the card
+        (:meth:`_offload_factors`)."""
         cfg = self.config
         scalar = _scalar_ilu(cfg)
         if scalar:
@@ -731,6 +836,8 @@ class Pastix:
         t0 = time.perf_counter()
         if scalar:
             return self._factorize_scalar_ilu(t0)
+        if self._ooc_plan is not None:
+            return self._factorize_streamed(t0)
         f = self.factors = numeric_factorize(
             self.layout, self._A_perm, self._coef_fn, self._fact_fn,
             self.device, pivot_threshold=cfg.static_pivoting_threshold,
@@ -739,6 +846,7 @@ class Pastix:
             inv = self._dinv_fn(f.pool)
             lu = f.kind == Factorization.LU
             f.dinv, f.dinv_u = inv if lu else (inv, None)
+        self._offload_factors()
         synchronize(self.device)
         self.report.fact_time = time.perf_counter() - t0
         self.report.static_pivots = self.factors.n_static_pivots
@@ -751,6 +859,78 @@ class Pastix:
                 f"({self.report.fact_gflops:.2f} GFLOP/s useful)"
             )
         return self.factors
+
+    def _factorize_streamed(self, t0: float) -> Factors:
+        """The streamed numeric phase (the reference's
+        ``_factorize_streamed``): the pools assembled in host memory, then
+        factored segment by segment on the card (``numeric/ooc``), the
+        host pools the backing store; LLᵗ's breakdown check reads the
+        factored diagonal on the host.  ``plan.io`` counts the bytes and
+        seconds moved from here on (``numeric.ooc.reset_io``)."""
+        cfg, plan = self.config, self._ooc_plan
+        reset_io(plan)
+        # the previous factors' pinned pools go back to PyTorch's host
+        # allocator, which hands them to the new ones (pinning costs
+        # about 0.3 s a GiB)
+        self.factors = None
+        f = self.factors = numeric_factorize(
+            self.layout, self._A_perm, self._coef_fn, self._fact_fn,
+            torch.device("cpu"), pivot_threshold=cfg.static_pivoting_threshold,
+        )
+        f.offloaded = f.streamed = True
+        synchronize(self.device)
+        self.report.fact_time = time.perf_counter() - t0
+        self.report.static_pivots = f.n_static_pivots
+        self.report.fact_gflops = self.report.fact_flops / max(
+            self.report.fact_time, 1e-12
+        ) / 1e9
+        if cfg.verbosity >= Verbosity.NO:
+            print(
+                f"[pastix-tpu-torch] numfact(ooc): "
+                f"{self.report.fact_time:.3f}s "
+                f"({self.report.fact_gflops:.2f} GFLOP/s useful, "
+                f"{len(plan.segments)} segments)"
+            )
+        return f
+
+    # the reference's out-of-core analog for resident factors: host-RAM
+    # offload after the factorization, a restore per solve
+
+    def _offload_factors(self) -> None:
+        """Move the factored pools to host memory unless they fit
+        ``ooc_limit_mb`` (a limit of 0 always moves them; reference
+        ``_offload_factors``).  The inverse diagonal tiles and the pivots
+        stay on the card."""
+        f = self.factors
+        if f is None or f.offloaded:
+            return
+        pools = [p for p in (f.pool, f.pool_u) if p is not None]
+        if not self._offloads(sum(p.numel() * p.element_size()
+                                  for p in pools)):
+            return
+        pin = self.device.type == "cuda"
+        host = lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                     pin_memory=pin).copy_(p)
+        f.pool = host(f.pool)
+        f.pool_u = None if f.pool_u is None else host(f.pool_u)
+        f.offloaded = True
+
+    def _offloads(self, nbytes: int) -> bool:
+        """Whether resident factors of ``nbytes`` leave the card after the
+        factorization: with ``ooc``, above ``ooc_limit_mb`` (any, with a
+        limit of 0)."""
+        limit = self.config.ooc_limit_mb << 20
+        return self.config.ooc and (not limit or nbytes > limit)
+
+    def _restore_factors(self) -> Factors:
+        """The factors with their pools on the card: a copy for offloaded
+        ones (dropped after the solve that uses it), else themselves."""
+        f = self.factors
+        if not f.offloaded or f.streamed:
+            return f
+        dev = lambda p: None if p is None else p.to(self.device)
+        return dataclasses.replace(f, pool=dev(f.pool), pool_u=dev(f.pool_u),
+                                   offloaded=False)
 
     def _factorize_scalar_ilu(self, t0: float) -> ScalarILUFactors:
         """Scalar-grain ILU(k) on the host (the reference's
@@ -821,7 +1001,8 @@ class Pastix:
         ILU factors apply on the host."""
         if isinstance(self.factors, ScalarILUFactors):
             return self.factors.solve(b_ext)
-        return run_host(self.factors, b_ext, self._solve_fn)
+        return run_host(self._restore_factors(), b_ext, self._solve_fn,
+                        self.device)
 
     def _device_solve_refined(self, b_ext: np.ndarray):
         """The device loop (``krylov.build_device_refine_fn``) on a host
@@ -956,7 +1137,7 @@ class Pastix:
         nsb = lay.nbc - sb
         S = np.zeros((nsb * T, nsb * T), dtype=np.float64)
         idx = np.flatnonzero(lay.blk_col >= sb)
-        idx_t = torch.as_tensor(idx, device=self.device)
+        idx_t = torch.as_tensor(idx, device=self.factors.pool.device)
         tiles = self.factors.pool[idx_t].cpu().numpy()
         pool_u = self.factors.pool_u
         tiles_u = pool_u[idx_t].cpu().numpy() if pool_u is not None else tiles
@@ -994,7 +1175,7 @@ class Pastix:
             solve_s = lambda y: schur_solve(S, y)
         ns = self._schur_unknowns.size
         sb = self._schur_first_bcol * self.layout.T
-        f = self.factors
+        f = self._restore_factors()
 
         def schur_precond(r):
             y = run_host(f, r, self._fwd_fn)
@@ -1045,6 +1226,7 @@ class Pastix:
         self._refine_fn = None
         self._dense_tail = None
         self._packed_plan = None
+        self._ooc_plan = None
         self._scalar_ilu_pat = None
 
     # the reference's member that is not ported yet: it raises, naming

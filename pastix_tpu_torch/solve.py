@@ -86,15 +86,16 @@ def build_fwd_bwd_fns(layout: SolverLayout, device, kind=Factorization.LLT,
     return on_rowvec(fwd), on_rowvec(bwd)
 
 
-def run_host(factors, v_perm: np.ndarray, fn) -> np.ndarray:
+def run_host(factors, v_perm: np.ndarray, fn, device=None) -> np.ndarray:
     """Apply a sweep of :func:`build_fwd_bwd_fns` (or a solve) to a host
     (n, [R]) permuted vector through the device (in the pool's dtype
     there; the result comes back as fp64, or complex128 for a complex
     pool): the counterpart of the reference's ``run_fwd`` and
-    ``run_bwd``."""
+    ``run_bwd``.  The vector goes to ``device`` (default: the pool's;
+    streamed factors' pools are in host memory)."""
     lay, pool = factors.layout, factors.pool
     vb = torch.as_tensor(rhs_to_blocks(lay, v_perm, np_dtype(pool.dtype)),
-                         device=pool.device)
+                         device=pool.device if device is None else device)
     host = torch.complex128 if pool.dtype.is_complex else torch.float64
     y = fn(*factors.solve_args(), vb).to(host).cpu().numpy()
     out = blocks_to_rhs(lay, y)
@@ -150,14 +151,50 @@ def build_level_fwd_bwd_fns(layout: SolverLayout, device,
     their diagonal, and the backward sweep reads them and never writes
     them."""
     kind = Factorization(kind)
+    lu = kind == Factorization.LU
+    tab = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+    fwd_sweep, bwd_sweep = level_sweeps(
+        [(tab(lv.cols), tab(lv.diag), tab(lv.trsm_panel), tab(lv.trsm_row),
+          tab(lv.trsm_col)) for lv in layout.levels], kind, dtype, hermitian)
+    own = lambda b: b.to(dtype, copy=True)
+    if lu:
+        def fwd(pool, pool_u, dinv, dinv_u, b):
+            return fwd_sweep(pool, own(b))
+
+        def bwd(pool, pool_u, dinv, dinv_u, y):
+            return bwd_sweep(pool_u, pool, own(y))
+    elif kind in (Factorization.LDLT, Factorization.LDLH):
+        def fwd(pool, dinv, d, b):
+            return fwd_sweep(pool, own(b)).div_(d[:, :, None])
+
+        def bwd(pool, dinv, d, y):
+            return bwd_sweep(pool, pool, own(y))
+    else:
+        def fwd(pool, dinv, b):
+            return fwd_sweep(pool, own(b))
+
+        def bwd(pool, dinv, y):
+            return bwd_sweep(pool, pool, own(y))
+    return fwd, bwd
+
+
+def level_sweeps(plan, kind=Factorization.LLT, dtype=torch.float32,
+                 hermitian=None):
+    """The body of the per-level sweeps, over ``plan``: a list of level
+    tables (cols, diag, tp, tr, tc) as int64 tensors, ``diag`` and ``tp``
+    indices into the tiles the sweeps are given (the pool, or a streamed
+    segment's window, ``numeric/ooc``).  Returns ``fwd_sweep(pool, y)``
+    (L⁻¹ y, unit lower but for LLᵗ) and ``bwd_sweep(pool_contrib,
+    pool_diag, x)`` (the transposed sweep over the levels in reverse:
+    contributions from ``pool_contrib``, Lᵗ or Lᴴ, LU's Uᵗ; diagonal
+    solves on ``pool_diag``, LU's upper triangle), both in place on the
+    (nbc, T, R) block vector, which they return."""
+    kind = Factorization(kind)
     if hermitian is None:
         hermitian = kind in (Factorization.LLT, Factorization.LDLH)
     herm = hermitian and dtype.is_complex
     unit = kind != Factorization.LLT
     lu = kind == Factorization.LU
-    tab = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
-    plan = [(tab(lv.cols), tab(lv.diag), tab(lv.trsm_panel),
-             tab(lv.trsm_row), tab(lv.trsm_col)) for lv in layout.levels]
 
     def chunks(tp, a, b):
         for i in range(0, tp.numel(), _LEVEL_CHUNK):
@@ -184,26 +221,7 @@ def build_level_fwd_bwd_fns(layout: SolverLayout, device,
                            unitriangular=unit))
         return x
 
-    own = lambda b: b.to(dtype, copy=True)
-    if lu:
-        def fwd(pool, pool_u, dinv, dinv_u, b):
-            return fwd_sweep(pool, own(b))
-
-        def bwd(pool, pool_u, dinv, dinv_u, y):
-            return bwd_sweep(pool_u, pool, own(y))
-    elif kind in (Factorization.LDLT, Factorization.LDLH):
-        def fwd(pool, dinv, d, b):
-            return fwd_sweep(pool, own(b)).div_(d[:, :, None])
-
-        def bwd(pool, dinv, d, y):
-            return bwd_sweep(pool, pool, own(y))
-    else:
-        def fwd(pool, dinv, b):
-            return fwd_sweep(pool, own(b))
-
-        def bwd(pool, dinv, y):
-            return bwd_sweep(pool, pool, own(y))
-    return fwd, bwd
+    return fwd_sweep, bwd_sweep
 
 
 def build_solve_fn(layout: SolverLayout, device, kind=Factorization.LLT,

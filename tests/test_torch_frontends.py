@@ -243,13 +243,14 @@ def test_cli_end_to_end(capsys, args):
 
 
 @pytest.mark.parametrize("flag,slice_", [
-    (["--mesh", "2"], "slice 5"), (["--ooc", "1"], "slice 4"),
+    (["--mesh", "2"], "slice 5"), (["--ooc", "1"], None),
     (["--fact", "ldlh"], None), (["--dtype", "f64"], None),
     (["--dtype", "c64"], None),
 ], ids=["mesh", "ooc", "ldlh", "f64", "c64"])
 def test_cli_unported_flags_name_their_slice(flag, slice_):
     """``--fact ldlh`` (of the real Laplacian: LDLᵗ) and ``--dtype
-    f64|c64`` are taken since A3 was ported: they solve."""
+    f64|c64`` are taken since A3 was ported, and ``--ooc MB`` since A8
+    was: they solve."""
     if slice_ is None:
         assert cli_main(["-lap3", "4", "--cpu", "-q", *flag]) == 0
         return

@@ -180,9 +180,10 @@ def test_native_library_named_by_host_cpu():
 
 
 def test_port_runs_without_jax_or_pastix_tpu():
-    """A fresh interpreter imports the port, runs spsolve, a Schur solve
-    and an LU solve on the CPU (``test_torch_import.SOLVES``), and never
-    loads jax or a pastix_tpu module."""
+    """A fresh interpreter imports the port, runs spsolve, a Schur solve,
+    an LU solve and a streamed solve on the CPU
+    (``test_torch_import.SOLVES``), and never loads jax or a pastix_tpu
+    module."""
     rc, lines, err = fresh_interpreter()
     assert rc == 0, err
     assert json.loads(lines[1]) == []

@@ -45,6 +45,7 @@ SLICE_MODULES = [
     "pastix_tpu_torch.numeric.fused",
     "pastix_tpu_torch.numeric.kernels",
     "pastix_tpu_torch.numeric.leftlook",
+    "pastix_tpu_torch.numeric.ooc",
     "pastix_tpu_torch.numeric.packed",
     "pastix_tpu_torch.numeric.pipelined",
     "pastix_tpu_torch.numeric.slab",
@@ -92,6 +93,10 @@ SOLVES = (
     "           level_of_fill=0, ilu_grain='scalar')):\n"
     "    x = P.spsolve(A, b, device='cpu', tile_size=16, **kw)\n"
     "    assert np.abs(x - 1).max() < 1e-9\n"
+    "s = P.Pastix(A, P.PastixConfig(tile_size=16), device='cpu')\n"
+    "s._free_device_bytes = lambda: 16 << 10  # streams\n"
+    "x = s.solve(b)\n"
+    "assert s.factors.streamed and np.abs(x - 1).max() < 1e-9\n"
 )
 
 

@@ -6,7 +6,8 @@ Held: both refined residuals <= 1e-10; solutions agree to 1e-8 relative
 ``refine_iters`` differ by at most 2 (the reference refines in fp32 and
 then on the host in fp64, the port in one fp64-residual loop); the
 reference's factors handed to the port's solve reproduce the reference's
-solution to 1e-8.  Then, on the same solvers, new values through
+solution to 1e-8; the port's solver streaming under ``ooc_limit_mb=1``
+reaches the reference's solution to 1e-8.  Then, on the same solvers, new values through
 ``factorize(values)`` on both (solutions to 1e-8, ``refine_iters`` within
 2, the port's device loop alone reaching 1e-10 on the new matrix, so its
 ELL matrix was rebuilt) and ``as_preconditioner`` on both on the same
@@ -64,6 +65,21 @@ def test_residuals_reach_1e10(pair):
 
 def test_solutions_agree(pair):
     _, x_ref, _, x, _ = pair
+    assert _rel(x, x_ref) <= 1e-8
+
+
+def test_streamed_solver_matches_reference(pair):
+    """Out-of-core (ROADMAP A8): the port's solver streaming its pools (2
+    MB) under a 1 MB budget against the reference's solve of the same b,
+    to 1e-8 relative (``tests/test_torch_ooc.py`` holds the streamed
+    pieces against the reference's ``numeric/ooc.py``)."""
+    _, x_ref, port, _, b = pair
+    cfg = PastixConfig(tile_size=32, update_dtype=port.config.update_dtype,
+                       ooc=True, ooc_limit_mb=1)
+    s = Pastix(poisson_3d(NX), cfg, device="cpu")
+    x = s.solve(b)
+    assert s.factors.streamed and len(s._ooc_plan.segments) >= 2
+    assert s.report.residual <= 1e-10
     assert _rel(x, x_ref) <= 1e-8
 
 
@@ -174,7 +190,7 @@ def test_unported_kinds_raise(make, exc, match):
 
 @pytest.mark.parametrize("cfg,taken", [
     (dict(compute_dtype="complex64"), True), (dict(mesh_shape=(2,)), False),
-    (dict(ooc=True), False), (dict(incomplete=True), True),
+    (dict(ooc=True), True), (dict(incomplete=True), True),
     (dict(refinement=RefinementMethod.GMRES), True),
     (dict(schur=True, factorization=Factorization.LDLH), True),
 ], ids=["complex", "mesh", "ooc", "ilu", "gmres", "schur"])
@@ -183,7 +199,9 @@ def test_unported_options_raise(cfg, taken):
     the real matrix), and so is the schur case (LDLᴴ of a real pool is
     LDLᵗ, whose Schur path is ported).  The gmres case is taken since the
     refinement methods were ported (A4): it solves; and so is the ilu case
-    since ILU was ported (A5): block ILU(1) with GMRES solves."""
+    since ILU was ported (A5): block ILU(1) with GMRES solves; and the ooc
+    case since out-of-core was ported (A8): with no limit the factors
+    leave the device after the factorization and a solve restores them."""
     if not taken:
         with pytest.raises(NotImplementedError, match="ROADMAP.md slice"):
             Pastix(poisson_3d(4), PastixConfig(**cfg), device="cpu")
