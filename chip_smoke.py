@@ -268,6 +268,36 @@ prints the final ``ok`` line:
    factorization the pool is in host memory and the card holds less than
    it, ``solve_with_schur`` restores it and launches K2 (residual <=
    1e-10); the phase's seconds are logged;
+20. the rest of one device (ROADMAP A10, A3b, A6), T=128: (a) the main
+   path's configuration with ``trace=True`` (``device_refine=False``: off
+   a TPU the reference refines on the host, so its solve and refinement
+   are two spans) on ``poisson_3d(--nx)``: analyzed, factorized twice,
+   solved twice, K1 and K2 launched and no twin, residual <= 1e-10;
+   ``dump_trace`` holds ``order``, ``symbfact``, ``analyze``,
+   ``numfact``, ``solve`` and ``refine``, every ``dur`` >= 0 and each
+   ``numfact`` span within 1 ms or 2 % of its ``report.fact_time``;
+   ``fact_ms`` traced beside phase 4's untraced; then one factorize and
+   solve under ``trace.profile_device``: K1 (``seg_mma_kernel``) and K2
+   (``sweep_kernel``) in the profile, the ten device operations with the
+   most time logged (name, calls, ms, share), and the matrix products
+   outside the kernels split by caller (a second profile of the same
+   calls, shapes recorded, ``matmul_callers``); (b) the cost model:
+   ``perf.calibrate(T, force=True)`` on the card at T = 16 (K3's twin:
+   K3 is not built for 16), 32, 64 and 128 into a fresh cache file, the
+   seconds each takes (what a first factorize at that size pays) and its
+   overhead and marginal seconds per body logged, the predicted
+   ``fact_ms`` beside the measured one for the main path (this
+   calibration), the LU path (phase 7) and the shift-invert LDLᵗ path
+   (phase 8) (their factorizations' ``report.predicted_fact_time``;
+   logged, not checked, as the reference checks none), and the main
+   path's ``estimate_fact_time`` and ``speed_of_light``; (c) fp64 Schur on
+   ``poisson_3d(24)`` with the plane z = 23 under LLᵗ, LDLᵗ and LU:
+   factorized twice (the second timed), ``get_schur`` within 1e-10
+   max|S| of the sparse-LU S, ``solve_with_schur`` to <= 1e-10, no hand
+   kernel launched and no twin run; (d) the nine examples of
+   ``pastix_tpu_torch/examples`` in this process with ``--device cuda``
+   at ``tests/test_examples.py``'s arguments, each exiting 0 and
+   printing that test's lines; the phase's seconds are logged;
 
 then the card's nvidia-smi line, one JSON line of the kernels (each
 variant on its own line of the list, ``launches`` from the path that runs
@@ -820,6 +850,7 @@ def drive(path, A, cfg, dev, need, schur=None, forbid=()):
         "fact_ms": fact_s[1] * 1e3, "gflops": gflops,
         "solve_ms": s.report.solve_time * 1e3, "get_schur_ms": get_ms,
         "iters": s.report.refine_iters,
+        "predicted_ms": s.report.predicted_fact_time * 1e3,
         "residual": s.report.residual, "static_pivots": s.report.static_pivots,
         "tiles": lay.npool, "levels": s.report.n_levels,
         "pool_gib": pool_gib, "peak_gib": peak,
@@ -3341,6 +3372,267 @@ def ooc_path(nx, lu_nx, ldlt_nx, big_nx, big_mb, dev, auto_nx=40):
     return runs
 
 
+def top_device_ops(prof, n=10):
+    """The ``n`` device operations with the most total time in a
+    ``torch.profiler`` profile: (name, calls, ms, share of the device
+    total), and the device total in ms."""
+    from torch.autograd import DeviceType
+
+    rows = sorted(((e.key, e.count, e.device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[2])
+    total = sum(r[2] for r in rows)
+    return [(k, c, ms, ms / total if total else 0.0)
+            for k, c, ms in rows[:n]], total
+
+
+def matmul_callers(prof):
+    """The matrix products of a ``torch.profiler`` profile recorded with
+    shapes, by the device time of their kernels: per op (``diag_trsm``'s
+    panel TRSM is the ``bmm`` of T x T tiles, the dense tail's blocked
+    factor and solve are ``mm``/``addmm`` of its m rows) the calls, ms,
+    the count of distinct shapes and the shapes of its costliest one."""
+    ops = ("aten::mm", "aten::bmm", "aten::addmm", "aten::addmm_",
+           "aten::baddbmm", "aten::matmul")
+    by = {}
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key not in ops or (e.key == "aten::matmul"
+                                and e.self_device_time_total == 0):
+            continue
+        ms = e.device_time_total / 1e3
+        r = by.setdefault(e.key, [0, 0.0, 0, "", -1.0])
+        r[0] += e.count
+        r[1] += ms
+        r[2] += 1
+        if ms > r[4]:
+            r[3], r[4] = str(e.input_shapes), ms
+    return sorted(((op, c, ms, k, sh) for op, (c, ms, k, sh, _)
+                   in by.items()), key=lambda r: -r[2])
+
+
+# the main path's kernels by their names in a device profile
+PROFILE_KERNELS = (("K1", "seg_mma_kernel"), ("K2", "sweep_kernel"))
+
+
+def run_example(name, args, dev):
+    """One of the port's examples in this process (``runpy``), its
+    standard output captured: (exit code, output)."""
+    import contextlib
+    import io
+    import runpy
+
+    saved = sys.argv
+    sys.argv = [name, *args, "--device", str(dev)]
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_module(f"pastix_tpu_torch.examples.{name}",
+                             run_name="__main__")
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    finally:
+        sys.argv = saved
+    return code, out.getvalue()
+
+
+def tail_path(nx, dev, paths):
+    """Phase 20: (a) the traced main path and its device profile, (b) the
+    cost model calibrated on the card against measured ``fact_ms``, (c)
+    fp64 Schur, (d) the port's examples.  ``paths`` holds phase 4's, 7's
+    and 8's figures (``fact_ms``, ``predicted_ms``).  Returns the
+    phase's figures."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pastix_tpu_torch import perf
+    from pastix_tpu_torch.config import Factorization, PastixConfig
+    from pastix_tpu_torch.examples import CHECKS
+    from pastix_tpu_torch.generators import poisson_3d
+    from pastix_tpu_torch.pastix import Pastix
+    from pastix_tpu_torch.trace import profile_device
+
+    t_phase = time.perf_counter()
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="pastix_phase20_")
+    try:
+        # (a) the main path traced: the device loop is the reference's on
+        # a TPU only, so off it (device_refine=False) the solve and the
+        # host refinement are two spans, as the reference records them
+        A = poisson_3d(nx)
+        M = A.to_scipy()
+        b = M @ np.ones(A.n)
+        s = Pastix(A, PastixConfig(tile_size=128, update_dtype="bfloat16",
+                                   trace=True, device_refine=False),
+                   device=dev)
+        reset_counts()
+        s.order()
+        s.symbfact()
+        s.analyze()
+        fact = []
+        for _ in range(2):
+            s.factorize()
+            fact.append(s.report.fact_time)
+        for _ in range(2):
+            x = s.solve(b)
+        launches = read_counts("traced main path", ("K1", "K2"))
+        res = float(np.linalg.norm(b - M @ x) / np.linalg.norm(b))
+        if not max(res, s.report.residual) <= TOL_RES:
+            raise AssertionError(f"traced main path: residual {res:.3e}")
+        path = os.path.join(tmp, "trace.json")
+        s.dump_trace(path)
+        spans = [e for e in json.load(open(path))["traceEvents"]
+                 if e["ph"] == "X"]
+        names = [e["name"] for e in spans]
+        log(f"  traced main path poisson_3d({nx}): spans {names}")
+        for e in spans:
+            log(f"    {e['name']:9s} {e['ts'] / 1e3:10.3f} ms "
+                f"+{e['dur'] / 1e3:9.3f} ms")
+        want = {"order", "symbfact", "analyze", "numfact", "solve", "refine"}
+        if not want <= set(names) or min(e["dur"] for e in spans) < 0:
+            raise AssertionError(f"the trace lacks one of {sorted(want)}")
+        numfact = [e["dur"] / 1e6 for e in spans if e["name"] == "numfact"]
+        for span, ft in zip(numfact, fact):
+            if abs(span - ft) > max(1e-3, 0.02 * ft):
+                raise AssertionError(f"numfact span {span:.6f} s against "
+                                     f"fact_time {ft:.6f} s")
+        log(f"  fact_ms traced {fact[1] * 1e3:.1f} (first "
+            f"{fact[0] * 1e3:.1f}), untraced (phase 4) "
+            f"{paths['LLT']['fact_ms']:.1f}; numfact spans "
+            f"{[round(v * 1e3, 3) for v in numfact]} ms")
+        with profile_device(os.path.join(tmp, "profile")) as prof:
+            s.factorize()
+            s.solve(b)
+        top, total = top_device_ops(prof)
+        log(f"  profile of one factorize + solve: device {total:.3f} ms; "
+            "the ten device operations with the most time:")
+        for name, calls, ms, share in top:
+            log(f"    {ms:9.3f} ms {calls:5d}x {100 * share:5.1f} % "
+                f"{name[:110]}")
+        keys = [e.key for e in prof.key_averages()]
+        for kname, pat in PROFILE_KERNELS:
+            if not any(pat in k for k in keys):
+                raise AssertionError(f"{kname} ({pat}) is not in the profile")
+        # the same calls again, the shapes recorded: the matrix products
+        # outside the kernels by caller
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof2:
+            s.factorize()
+            s.solve(b)
+            torch.cuda.synchronize(dev)
+        mms = matmul_callers(prof2)
+        log("  the matrix products outside the kernels, by shape "
+            "(a second profile of the same calls, shapes recorded):")
+        for op, calls, ms, k, shapes in mms:
+            log(f"    {ms:9.3f} ms {calls:5d}x {op} ({k} shapes; costliest "
+                f"{shapes[:100]})")
+        del prof2
+        out["traced"] = {
+            "spans": names, "fact_ms": fact[1] * 1e3,
+            "fact_ms_untraced": paths["LLT"]["fact_ms"],
+            "numfact_span_ms": [v * 1e3 for v in numfact],
+            "device_ms": total, "residual": s.report.residual,
+            "launches": {k: v for k, v in launches.items() if v},
+            "top": [{"name": n_, "calls": c, "ms": ms, "share": sh}
+                    for n_, c, ms, sh in top],
+            "matmuls": [{"op": op, "calls": c, "ms": ms, "shapes": k,
+                         "costliest": sh} for op, c, ms, k, sh in mms],
+        }
+        # (b) the cost model: fresh calibrations on the card, at the tile
+        # sizes K3 is built for and at 16 (the twin's route), each the
+        # one-time cost a first factorize at that size pays
+        perf.measure_kernels.cache_clear()
+        perf._DISK_CACHE = os.path.join(tmp, "perf", os.path.basename(
+            perf._DISK_CACHE))
+        cal_s = {}
+        for T in (16, 32, 64, 128):
+            t0 = time.perf_counter()
+            cal = perf.calibrate(T, "float32", force=True, device=dev)
+            cal_s[T] = time.perf_counter() - t0
+            log(f"  calibrate({T}) on {perf.device_kind(dev)} in "
+                f"{cal_s[T]:.2f} s: " + json.dumps(cal))
+        pred = {"LLT": perf.predict_fact_time(s.layout, device=dev) * 1e3}
+        for kind in ("LU", "LDLT"):  # predicted in their phases
+            pred[kind] = paths[kind]["predicted_ms"]
+        for kind, label in (("LLT", f"main path poisson_3d({nx})"),
+                            ("LU", "LU (phase 7)"),
+                            ("LDLT", "shift-invert LDLT (phase 8)")):
+            ms = paths[kind]["fact_ms"]
+            log(f"  predicted {pred[kind]:.1f} ms, measured fact_ms "
+                f"{ms:.1f} ms (ratio {pred[kind] / ms:.3f}): {label}")
+        # the per-level estimate (bodies timed at each level's batch) and
+        # the roofline of the main path's measured fact_ms (bf16 updates)
+        t0 = time.perf_counter()
+        est = perf.estimate_fact_time(s.layout, device=dev) * 1e3
+        est_s = time.perf_counter() - t0
+        sol = perf.speed_of_light(s.layout, paths["LLT"]["fact_ms"] / 1e3,
+                                  PEAK_BF16 / 1e9)
+        log(f"  main path: estimate_fact_time {est:.1f} ms (in {est_s:.2f}"
+            f" s), padded {sol['padded_gflops']:.1f} GFLOP/s, "
+            f"{100 * sol['peak_fraction']:.2f} % of the bf16 peak")
+        out["cost"] = {"calibration": cal, "calibrate_s": cal_s,
+                       "predicted_ms": pred, "estimated_ms": est,
+                       "roofline": sol,
+                       "fact_ms": {k: paths[k]["fact_ms"] for k in pred}}
+        del s, prof
+        # (c) fp64 Schur: no hand kernel, no twin
+        A24 = poisson_3d(24)
+        sch = last_plane(24)
+        S_ref = schur_reference(A24, sch)
+        M = A24.to_scipy()
+        b = M @ np.ones(A24.n)
+        out["fp64 schur"] = {}
+        for kind in ("LLT", "LDLT", "LU"):
+            reset_counts()
+            s = Pastix(A24, PastixConfig(
+                tile_size=128, compute_dtype="float64",
+                factorization=Factorization[kind]), device=dev)
+            s.set_schur_unknowns(sch)
+            fact = []
+            for _ in range(2):
+                s.factorize()
+                fact.append(s.report.fact_time)
+            S = s.get_schur()
+            x = s.solve_with_schur(b)
+            read_counts(f"fp64 Schur {kind}", (), forbid=tuple(counters()))
+            err = float(np.abs(S - S_ref).max() / np.abs(S_ref).max())
+            res = float(np.linalg.norm(b - M @ x) / np.linalg.norm(b))
+            num = {"fact_ms": fact[1] * 1e3, "fact_ms_first": fact[0] * 1e3,
+                   "schur_err": err, "residual": s.report.residual,
+                   "residual_original_order": res,
+                   "refine_iters": s.report.refine_iters,
+                   "solve_ms": s.report.solve_time * 1e3}
+            log(f"  fp64 Schur {kind} poisson_3d(24), z = 23: "
+                + json.dumps(num))
+            if not err <= 1e-10 or not max(res, s.report.residual) <= TOL_RES:
+                raise AssertionError(f"fp64 Schur {kind}: S off by {err:.3e} "
+                                     f"or residual {res:.3e}")
+            out["fp64 schur"][kind] = num
+        # (d) the examples, in this process on the card
+        out["examples"] = {}
+        for name, (args, lines) in CHECKS.items():
+            t0 = time.perf_counter()
+            code, text = run_example(name, args, dev)
+            sec = time.perf_counter() - t0
+            last = [ln for ln in text.splitlines() if ln.strip()][-1:]
+            log(f"  example {name} {' '.join(args)}: exit {code}, "
+                f"{sec:.2f} s: {last[0] if last else ''}")
+            if code != 0 or not all(ln in text for ln in lines):
+                raise AssertionError(f"example {name} failed:\n{text}")
+            out["examples"][name] = sec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    out["seconds"] = seconds
+    log(f"phase 20: {seconds:.1f} s")
+    return out
+
+
 def sass_count(build, kernel, ops, also=None):
     """How many of each SASS opcode of ``ops`` the library's ``kernel``
     functions hold (``cuobjdump -sass``, run once a library; ``also``:
@@ -3605,6 +3897,12 @@ def main() -> int:
                    args.ooc_mb, dev)
     elapsed("phase 19")
 
+    # 20. the traced main path and its profile, the cost model, fp64
+    # Schur and the examples
+    tail = tail_path(args.nx, dev, {"LLT": main_num, "LU": lu_num,
+                                    "LDLT": ldlt_num})
+    elapsed("phase 20")
+
     # no single PyTorch call computes a gather-GEMM-scatter over a pair
     # list or a block-sparse triangular sweep: library_ms is null but for
     # K4 LU (lu_factor_ex without pivoting) and K13 (index_select of the
@@ -3742,6 +4040,7 @@ def main() -> int:
         log(f"path ilu/packed {label}: " + json.dumps(num))
     for label, num in ooc.items():
         log(f"path ooc {label}: " + json.dumps(num))
+    log("phase 20: " + json.dumps(tail))
     for T, (ms, plain, bd, lib, dev_ms, dev_lib) in k8_one.items():
         log(f"K8 one tile T={T}: " + json.dumps(
             {"ms": ms, "plain_ms": plain, "bound_ms": bd[0],

@@ -18,6 +18,9 @@ import dataclasses
 import enum
 from typing import Optional
 
+# the tile sizes the card's kernels (K1-K4) are built for
+CARD_TILES = (32, 64, 128)
+
 
 class Task(enum.IntEnum):
     """Pipeline phases — reference API_TASK_* (api.h)."""
@@ -318,12 +321,13 @@ class PastixConfig:
             out.setdefault("ooc", True)
         return cls(**out)
 
-    def resolve_tile_size(self, n: int) -> int:
+    def resolve_tile_size(self, n: int, card: bool = False) -> int:
         """Pick the tile size for an n-dof problem.
 
         MXU-guided: 128 once panels are large enough to fill the systolic
         array; smaller power-of-two tiles for small problems so padding
-        stays bounded.
+        stays bounded.  On the card (``card``), whose kernels are built
+        for :data:`CARD_TILES`, a size left open is at least 32.
         """
         if self.tile_size is not None:
             return self.tile_size
@@ -333,7 +337,7 @@ class PastixConfig:
             return 64
         if n >= 2_000:
             return 32
-        return 16
+        return CARD_TILES[0] if card else 16
 
 
 @dataclasses.dataclass

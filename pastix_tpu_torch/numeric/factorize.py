@@ -401,9 +401,12 @@ class _Level:
     schur_nd: list = dataclasses.field(default_factory=list)  # LU: the
     # Ut-side mirror of schur
     # non-fp32 pools (_build_plain): the (ga, gb, gd, gk) index tensors of
-    # the updates into this level, and (ga, gb, gd) of LU's Ut mirror
+    # the updates into this level, and (ga, gb, gd) of LU's Ut mirror;
+    # the same of its updates into Schur columns
     inc: tuple = ()
     inc_nd: tuple = ()
+    res: tuple = ()
+    res_nd: tuple = ()
     # right-looking: the level's own updates after its TRSM
     full: list = dataclasses.field(default_factory=list)  # K3 (p_full)
     nd: list = dataclasses.field(default_factory=list)  # LU Ut mirror
@@ -832,12 +835,15 @@ def _build_plain(layout, device, kind, update_dtype, dense_tail, e2,
     from ``pool_u``, then the Uᵗ mirror), the diagonal tiles
     (``potrf_batch``: ``cholesky_ex`` for LLᴴ and real LLᵗ, the
     unconjugated loop for complex-symmetric LLᵗ; ``ldlt_batch``;
-    ``getrf_batch``), then the panel TRSM (``trsm_*``).  With
-    ``dense_tail`` (LLᴴ and real LLᵗ): the tail pre-pass and the blocked
-    dense Cholesky.  ``update_dtype`` rounds a real pool's operands (fp64
-    accumulates bf16 products, as the reference); a complex pool takes
-    none.  No right-looking schedule, fused DIAG or Schur column: those
-    run the fp32 kernels."""
+    ``getrf_batch``), then the panel TRSM (``trsm_*``), then the level's
+    updates into Schur columns (a layout built with ``schur_first_bcol``:
+    the residue ``regroup_left`` leaves, by the same torch ops, LU's Uᵗ
+    mirror too), where the fp32 route runs K3.  With ``dense_tail`` (LLᴴ
+    and real LLᵗ): the tail pre-pass and the blocked dense Cholesky.
+    ``update_dtype`` rounds a real pool's operands (fp64 accumulates bf16
+    products, as the reference); a complex pool takes none.  No
+    right-looking schedule or fused DIAG (the fp32 kernels), and no
+    complex Schur column (the reference has none)."""
     if e2 not in (None, "left"):
         raise NotImplementedError(
             f"e2={e2!r} with a {dtype} pool: the right-looking schedules run "
@@ -853,25 +859,32 @@ def _build_plain(layout, device, kind, update_dtype, dense_tail, e2,
             dtype.is_complex and not herm)):
         raise ValueError("the dense tail is LLᵗ or LLᴴ only (the "
                          "reference's rule)")
-    if factored_cols(layout).size != layout.nbc:
+    if dtype.is_complex and factored_cols(layout).size != layout.nbc:
         raise NotImplementedError(
-            f"Schur columns with a {dtype} pool: their residue runs through "
-            "the fp32 kernel K3 (complex Schur: the reference has none; "
-            "fp64 Schur: ROADMAP.md A3b)")
+            f"Schur columns with a {dtype} pool: the reference has no "
+            "complex Schur complement")
     T = layout.T
     levels = dense_tail.levels_lo if dense_tail is not None else layout.levels
     tail_s = dense_tail.s if dense_tail is not None else None
-    _, incoming, tail = regroup_left(levels, layout.blk_col, tail_s)
+    reduced, incoming, tail = regroup_left(levels, layout.blk_col, tail_s)
     tens = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    def updates(ga, gb, gd, gk, nd):
+        """(all, LU's Uᵗ mirror) of a list of updates, as index tensors."""
+        return (tuple(map(tens, (ga, gb, gd, gk))) if ga.size else (),
+                (tuple(map(tens, (ga[nd], gb[nd], gd[nd]))) + (None,)
+                 if is_lu and nd.any() else ()))
+
     plan = []
-    for lv, (ga, gb, gd, gk, nd) in zip(levels, incoming):
+    for lv, inc, r in zip(levels, incoming, reduced):
+        inc, inc_nd = updates(*inc)
+        res, res_nd = updates(r.gemm_a, r.gemm_b, r.gemm_d, r.gemm_k,
+                              np.asarray(r.gemm_nondiag, bool))
         plan.append(_Level(
             cols=tens(lv.cols), diag=tens(lv.diag), tp=tens(lv.trsm_panel),
             tc=tens(lv.trsm_col),
             tcpos=tens(np.searchsorted(lv.cols, lv.trsm_col)),
-            inc=tuple(map(tens, (ga, gb, gd, gk))) if ga.size else (),
-            inc_nd=(tuple(map(tens, (ga[nd], gb[nd], gd[nd]))) + (None,)
-                    if is_lu and nd.any() else ()),
+            inc=inc, inc_nd=inc_nd, res=res, res_nd=res_nd,
         ))
     tail_inc = (tuple(map(tens, tail[:3]))
                 if tail is not None and tail[0].size else ())
@@ -888,6 +901,8 @@ def _build_plain(layout, device, kind, update_dtype, dense_tail, e2,
             if lv.inc:
                 plain_update(pool, lv.inc, update_dtype, hermitian=herm)
             plain_diag_trsm(kind, lv, pool, hermitian=herm)
+            if lv.res:
+                plain_update(pool, lv.res, update_dtype, hermitian=herm)
         if tail_inc:
             plain_update(pool, tail_inc + (None,), update_dtype,
                          hermitian=herm)
@@ -904,6 +919,8 @@ def _build_plain(layout, device, kind, update_dtype, dense_tail, e2,
                 plain_update(pool, lv.inc, update_dtype, d, herm)
             plain_diag_trsm(kind, lv, pool, d=d, npiv=npiv, eps=eps,
                             hermitian=herm)
+            if lv.res:
+                plain_update(pool, lv.res, update_dtype, d, herm)
         return pool, d, npiv
 
     def fact_lu(pool: torch.Tensor, pool_u: torch.Tensor, eps: float):
@@ -917,6 +934,10 @@ def _build_plain(layout, device, kind, update_dtype, dense_tail, e2,
             if lv.inc_nd:
                 plain_update(pool_u, lv.inc_nd, update_dtype, src_pool=pool)
             plain_diag_trsm(kind, lv, pool, pool_u, npiv=npiv, eps=eps)
+            if lv.res:
+                plain_update(pool, lv.res, update_dtype, src_pool=pool_u)
+            if lv.res_nd:
+                plain_update(pool_u, lv.res_nd, update_dtype, src_pool=pool)
         return pool, pool_u, npiv
 
     fn = {Factorization.LLT: fact_llt, Factorization.LDLT: fact_ldlt,

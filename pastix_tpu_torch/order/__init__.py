@@ -42,18 +42,20 @@ def compute_ordering(
     config: PastixConfig | None = None,
     method: OrderingMethod | None = None,
     user_perm: np.ndarray | None = None,
+    card: bool = False,
 ) -> Order:
     """Compute a fill-reducing ordering of a full symmetric pattern.
 
     ``pattern`` must be the symmetrized boolean pattern with diagonal
-    (SparseMatrix.pattern_sym_scipy()).
+    (SparseMatrix.pattern_sym_scipy()).  ``card``: the factorization runs
+    on the card, whose tile sizes start at 32 (``resolve_tile_size``).
     """
     config = config or PastixConfig()
     method = method or config.ordering
     n = pattern.shape[0]
     # ND leaves sized to the tile grid: a leaf that fits one tile column
     # neither splits into level chains nor pads (see config.nd_leaf_size)
-    leaf_size = config.nd_leaf_size or config.resolve_tile_size(n)
+    leaf_size = config.nd_leaf_size or config.resolve_tile_size(n, card)
 
     if method == OrderingMethod.PERSONAL:
         if user_perm is None:

@@ -9,11 +9,14 @@ its Schur-complement calls (``set_schur_unknowns``, ``get_schur``,
 ``solve_with_schur``); :func:`spsolve` is its one-call form and
 :func:`pastix` the reference's array API with its phase window.  The
 host phases (ordering, symbolic factorization, the supernode-aligned or
-Schur extension) are copies of the reference's methods, with the tracing
-branches left out; the numeric phases run on one device through the
-port's kernels.  What is not ported
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` slice; there are
-no silent fallbacks, and an error on the device propagates.
+Schur extension) are copies of the reference's methods; the numeric
+phases run on one device through the port's kernels.  With ``trace``
+each phase is a span of ``self.tracer`` (``trace.Tracer``), ended after
+the device has finished, and ``dump_trace`` writes them; ``factorize``
+sets ``report.predicted_fact_time`` from the cost model (``perf``).
+What is not ported raises ``NotImplementedError`` naming its
+``ROADMAP.md`` slice; there are no silent fallbacks, and an error on the
+device propagates.
 
 The route is chosen in ``analyze`` from ``compute_dtype`` and the kind:
 an fp32 real pool runs the hand kernels (K1, K4, K2); fp64 and complex
@@ -52,6 +55,7 @@ from pastix_tpu_torch.analyze.scalar_ilu import (
     ScalarILUFactors, scalar_ilu_factor, scalar_ilu_pattern,
 )
 from pastix_tpu_torch.config import (
+    CARD_TILES,
     Factorization,
     IOStrategy,
     PastixConfig,
@@ -62,8 +66,10 @@ from pastix_tpu_torch.config import (
     Verbosity,
 )
 from pastix_tpu_torch.order import Order, compute_ordering
+from pastix_tpu_torch.perf import predict_fact_time
 from pastix_tpu_torch.sparse import SparseMatrix, check_matrix
 from pastix_tpu_torch.symbolic import compute_symbolic
+from pastix_tpu_torch.trace import Tracer
 from pastix_tpu_torch._device import pin_precision, resolve_device, synchronize
 from pastix_tpu_torch.krylov import build_device_refine_fn, build_ell
 from pastix_tpu_torch.numeric.factorize import (
@@ -113,9 +119,11 @@ def _scalar_ilu(cfg: PastixConfig) -> bool:
 
 
 def _check_schur(cfg: PastixConfig) -> None:
-    """The Schur complement is fp32 real: its residue runs through K3.
-    Scalar ILU has no tile layout to hold it (the reference's analyze
-    returns None there, and its get_schur would fail)."""
+    """The Schur complement is real: fp32 pools apply its residue
+    through K3, fp64 ones by torch ops (``_build_plain``); a complex pool
+    raises, as the reference has no complex Schur.  Scalar ILU has no
+    tile layout to hold it (the reference's analyze returns None there,
+    and its get_schur would fail)."""
     if _scalar_ilu(cfg):
         raise ValueError(
             "Schur unknowns with ilu_grain='scalar': the host factors hold "
@@ -126,10 +134,6 @@ def _check_schur(cfg: PastixConfig) -> None:
             "pastix_tpu_torch: a Schur complement with a complex "
             "compute_dtype; the reference has none either (its get_schur "
             "builds S in float64)")
-    if dt != torch.float32:
-        raise _not_ported(
-            f"a Schur complement with compute_dtype={cfg.compute_dtype} "
-            "(its residue runs through the fp32 kernel K3)", "A3b")
 
 
 def _not_ported(what: str, slice_: str):
@@ -167,8 +171,6 @@ def _check_config(cfg: PastixConfig) -> None:
         _check_schur(cfg)
     if cfg.mesh_shape is not None:
         raise _not_ported("mesh_shape (multi-device)", "slice 5")
-    if cfg.trace:
-        raise _not_ported("trace=True (phase spans, dump_trace)", "A10")
 
 
 class Pastix:
@@ -197,8 +199,23 @@ class Pastix:
         self._refine_fn = None  # the device refinement loop, if it runs
         self._ell = None  # its fp64 ELL matrix of A_perm
         self._ooc_plan = None  # numeric.ooc.OOCPlan, if streamed
+        self.tracer = Tracer() if self.config.trace else None
         if A is not None:
             self.set_matrix(A)
+
+    def dump_trace(self, path: str) -> None:
+        """Write the collected phase spans as perfetto/chrome trace JSON."""
+        if self.tracer is None:
+            raise ValueError("tracing not enabled (PastixConfig.trace)")
+        self.tracer.dump(path)
+
+    def _trace_phase(self, name: str, t0: float) -> None:
+        """Record a completed phase [t0, now] (t0 from
+        ``time.perf_counter()``) on the ``phases`` track."""
+        if self.tracer is not None:
+            e = self.tracer.epoch
+            self.tracer.record(name, t0 - e, time.perf_counter() - e,
+                               track="phases")
 
     @property
     def _dtype(self) -> torch.dtype:
@@ -285,7 +302,7 @@ class Pastix:
     def set_schur_unknowns(self, unknowns) -> "Pastix":
         """pastix_setSchurUnknownList equivalent: these dofs are ordered
         last and left unfactored; get_schur() returns their complement.
-        A non-fp32 ``compute_dtype`` raises (``_check_schur``)."""
+        A complex ``compute_dtype`` raises (``_check_schur``)."""
         _check_schur(self.config)
         self._schur_unknowns = np.unique(np.asarray(unknowns, dtype=np.int64))
         self.config.schur = True
@@ -302,6 +319,7 @@ class Pastix:
             self.order_ = Order.load(os.path.join(cfg.io_dir, "ordername"))
             self.order_.check()
             self.report.order_time = time.perf_counter() - t0
+            self._trace_phase("order", t0)
             return self.order_
         pat = self.A.pattern_sym_scipy()
         if self._schur_unknowns is not None:
@@ -316,11 +334,13 @@ class Pastix:
         elif cfg.dof_nbr > 1:
             self.order_ = self._order_with_dof(pat, user_perm)
         else:
-            self.order_ = compute_ordering(pat, cfg, user_perm=user_perm)
+            self.order_ = compute_ordering(pat, cfg, user_perm=user_perm,
+                                         card=self._card)
         self.order_.check()
         if cfg.io_strategy == IOStrategy.SAVE:
             self.order_.save(os.path.join(cfg.io_dir, "ordername"))
         self.report.order_time = time.perf_counter() - t0
+        self._trace_phase("order", t0)
         if cfg.verbosity >= Verbosity.NO:
             print(f"[pastix-tpu-torch] ordering: {self.report.order_time:.3f}s")
         return self.order_
@@ -347,7 +367,8 @@ class Pastix:
             shape=(nn, nn),
         ).tocsc()
         node_pat.sum_duplicates()
-        no = compute_ordering(node_pat, self.config, user_perm=user_perm)
+        no = compute_ordering(node_pat, self.config, user_perm=user_perm,
+                              card=self._card)
         ar = np.arange(d, dtype=np.int64)
         peritab = (no.peritab[:, None] * d + ar).ravel()
         permtab = np.empty(n, dtype=np.int64)
@@ -362,7 +383,7 @@ class Pastix:
         mask[schur] = True
         rest = np.flatnonzero(~mask)
         sub = sp.csc_matrix(pat[rest][:, rest])
-        sub_order = compute_ordering(sub, self.config)
+        sub_order = compute_ordering(sub, self.config, card=self._card)
         peritab = np.concatenate([rest[sub_order.peritab], schur])
         permtab = np.empty(n, dtype=np.int64)
         permtab[peritab] = np.arange(n, dtype=np.int64)
@@ -397,6 +418,7 @@ class Pastix:
             if cfg.io_strategy == IOStrategy.SAVE:
                 self.symbol_.save(os.path.join(cfg.io_dir, "symbname"))
         self.report.symbfact_time = time.perf_counter() - t0
+        self._trace_phase("symbfact", t0)
         self.report.nnz_l_exact = int(self._scalar_info["nnz_l_exact"])
         self.report.fact_flops = float(self._scalar_info["flops_exact"])
         if (
@@ -461,7 +483,7 @@ class Pastix:
             return
         cfg = self.config
         n = self.A.n
-        T = cfg.resolve_tile_size(n)
+        T = self._resolve_tile_size(n)
         if self._schur_unknowns is not None:
             # the Schur dofs (ordered last) start at a tile boundary; the
             # others keep the supernode alignment, which the reference
@@ -490,6 +512,22 @@ class Pastix:
         pat = (abs(Ap) + abs(Ap).T).astype(bool).tocsc()
         pat = (pat + sp.eye(n_ext, dtype=bool, format="csc")).astype(bool).tocsc()
         self._pat_perm_ext = pat
+
+    @property
+    def _card(self) -> bool:
+        return self.device.type == "cuda"
+
+    def _resolve_tile_size(self, n: int) -> int:
+        """The config's tile size for ``n`` dofs on this device
+        (``PastixConfig.resolve_tile_size``); on the card an fp32 pool
+        takes only the sizes its kernels are built for (``CARD_TILES``)."""
+        T = self.config.resolve_tile_size(n, self._card)
+        if self._card and self._dtype == torch.float32 \
+                and T not in CARD_TILES:
+            raise ValueError(
+                f"tile_size={T} on {self.device}: the card's kernels take "
+                f"T in {CARD_TILES}")
+        return T
 
     def _permuted_extended(self) -> sp.csc_matrix:
         """A's values permuted and embedded into the cached extension
@@ -738,7 +776,9 @@ class Pastix:
                 restart=cfg.gmres_restart, dtype=dt,
             )
             self._ell = self._device_ell()
+        synchronize(dev)
         self.report.analyze_time = time.perf_counter() - t0
+        self._trace_phase("analyze", t0)
         self.report.tile_size = T
         self.report.n_tiles = lay.npool
         self.report.n_levels = (
@@ -823,7 +863,10 @@ class Pastix:
         assembles the pools in host memory and streams them through the
         card (:meth:`_factorize_streamed`); with ``ooc``, resident factors
         larger than ``ooc_limit_mb`` then leave the card
-        (:meth:`_offload_factors`)."""
+        (:meth:`_offload_factors`).  ``report.predicted_fact_time`` is the
+        cost model's (``perf.predict_fact_time``) unless
+        ``PASTIX_MEASURED_PLAN=0``; with ``trace`` the phase is the span
+        ``numfact`` (scalar ILU: ``factorize``)."""
         cfg = self.config
         scalar = _scalar_ilu(cfg)
         if scalar:
@@ -849,14 +892,28 @@ class Pastix:
         self._offload_factors()
         synchronize(self.device)
         self.report.fact_time = time.perf_counter() - t0
+        self._trace_phase("numfact", t0)
         self.report.static_pivots = self.factors.n_static_pivots
         self.report.fact_gflops = self.report.fact_flops / max(
             self.report.fact_time, 1e-12
         ) / 1e9
+        # the cost model's prediction, called as the reference calls it
+        # (the layout, fp32 bodies) on this solver's device (the first
+        # call at a tile size calibrates, disk-cached); an error
+        # propagates, where the reference swallows it
+        if os.environ.get("PASTIX_MEASURED_PLAN", "1") != "0":
+            self.report.predicted_fact_time = predict_fact_time(
+                self.layout, device=self.device)
         if cfg.verbosity >= Verbosity.NO:
+            pred = (
+                f", predicted {self.report.predicted_fact_time:.3f}s"
+                if self.report.predicted_fact_time
+                else ""
+            )
             print(
                 f"[pastix-tpu-torch] numfact: {self.report.fact_time:.3f}s "
-                f"({self.report.fact_gflops:.2f} GFLOP/s useful)"
+                f"({self.report.fact_gflops:.2f} GFLOP/s useful, "
+                f"pivots clamped: {self.report.static_pivots}{pred})"
             )
         return self.factors
 
@@ -880,6 +937,7 @@ class Pastix:
         f.offloaded = f.streamed = True
         synchronize(self.device)
         self.report.fact_time = time.perf_counter() - t0
+        self._trace_phase("numfact", t0)
         self.report.static_pivots = f.n_static_pivots
         self.report.fact_gflops = self.report.fact_flops / max(
             self.report.fact_time, 1e-12
@@ -958,6 +1016,7 @@ class Pastix:
         self.report.static_pivots = self.factors.static_pivots
         self.report.memory_terms = self.factors.nnz_terms
         self.report.nnz_l = int(self.factors.L.nnz)
+        self._trace_phase("factorize", t0)
         if cfg.verbosity >= Verbosity.NO:
             print(
                 f"[pastix-tpu-torch] scalar ILU({cfg.level_of_fill}): "
@@ -1061,7 +1120,9 @@ class Pastix:
         else:
             x_ext = self._raw_solve_ext(b_ext)
             host_loop = do_refine
+        synchronize(self.device)
         self.report.solve_time = time.perf_counter() - t0
+        self._trace_phase("solve", t0)
         if host_loop:
             t0 = time.perf_counter()
             rdt = np.result_type(
@@ -1077,7 +1138,9 @@ class Pastix:
             x_ext = res.x
             self.report.refine_iters = dev_iters + res.iterations
             self.report.residual = res.residual
+            synchronize(self.device)
             self.report.refine_time = time.perf_counter() - t0
+            self._trace_phase("refine", t0)
         elif not do_refine:
             r = b_ext - Ap @ x_ext
             self.report.residual = float(
@@ -1228,12 +1291,6 @@ class Pastix:
         self._packed_plan = None
         self._ooc_plan = None
         self._scalar_ilu_pat = None
-
-    # the reference's member that is not ported yet: it raises, naming
-    # its ROADMAP item
-
-    def dump_trace(self, path: str) -> None:
-        raise _not_ported("dump_trace (phase spans)", "A10")
 
 
 def spsolve(A, b, config: Optional[PastixConfig] = None, device=None,

@@ -21,10 +21,12 @@ complex64 pools and unrefined solutions of ``chip_smoke.py`` phase 17 at
 ``pin_precision`` against complex128 (1e-5), fp64 pools against the
 CPU's (1e-10), the packed E2 path's pools on the card against the CPU's
 (1e-4), and block ILU's K1 plans against the twin (1e-4, bit for bit
-twice).
+twice); the cost model's prediction calibrated on the solver's own
+device, at a tile size K3 is not built for too.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -1153,6 +1155,31 @@ def test_float64_on_cuda_matches_cpu(cuda, kind):
     (p1, x1), (p0, x0) = out
     assert np.abs(p1 - p0).max() <= 1e-10 * np.abs(p0).max()
     assert np.abs(x1 - x0).max() <= 1e-9
+
+
+@pytest.mark.parametrize("device,T", [("cuda", 16), ("cpu", 16),
+                                      ("cpu", None)])
+def test_prediction_on_the_solvers_device(cuda, monkeypatch, tmp_path,
+                                          device, T):
+    """``report.predicted_fact_time`` is calibrated on the solver's own
+    device, keyed by it: an fp64 pool on the card at T=16, a size K3 is
+    not built for (its gemm timed by the twin), and a CPU solver on a
+    machine with a card, at T=16 and at the CPU's own choice (16 below
+    2000 dofs); no K3 launch in any of them."""
+    import pastix_tpu_torch.perf as perf
+
+    monkeypatch.setattr(perf, "_DISK_CACHE", str(tmp_path / "perf.json"))
+    dev = cuda if device == "cuda" else "cpu"
+    k3 = PL.gemm_scatter_pipelined.launches
+    s = Pastix(poisson_3d(8), PastixConfig(tile_size=T,
+                                           compute_dtype="float64"),
+               device=dev)
+    s.factorize()
+    assert s.layout.T == 16 and s.report.predicted_fact_time > 0
+    kind = torch.cuda.get_device_name(cuda) if device == "cuda" else "cpu"
+    with open(perf._DISK_CACHE) as f:
+        assert set(json.load(f)) == {f"{kind}:16:float32"}
+    assert PL.gemm_scatter_pipelined.launches == k3
 
 
 @pytest.mark.parametrize("kind,upd", [("LLT", "bfloat16"), ("LDLT", None),

@@ -33,6 +33,10 @@ SLICE_MODULES = [
     "pastix_tpu_torch.convert",
     "pastix_tpu_torch.distributed",
     "pastix_tpu_torch.drivers",
+    "pastix_tpu_torch.examples",
+    *(f"pastix_tpu_torch.examples.{m}" for m in (
+        "simple", "step_by_step", "schur", "reentrant", "murge_assembly",
+        "isolate_zeros", "simple_dist", "memory_usage", "out_of_core")),
     "pastix_tpu_torch.generators",
     "pastix_tpu_torch.krylov",
     "pastix_tpu_torch.murge",
@@ -53,10 +57,12 @@ SLICE_MODULES = [
     "pastix_tpu_torch.numeric.tile_factor",
     "pastix_tpu_torch.order",
     "pastix_tpu_torch.pastix",
+    "pastix_tpu_torch.perf",
     "pastix_tpu_torch.refine",
     "pastix_tpu_torch.solve",
     "pastix_tpu_torch.sparse",
     "pastix_tpu_torch.symbolic",
+    "pastix_tpu_torch.trace",
 ]
 
 
@@ -97,6 +103,11 @@ SOLVES = (
     "s._free_device_bytes = lambda: 16 << 10  # streams\n"
     "x = s.solve(b)\n"
     "assert s.factors.streamed and np.abs(x - 1).max() < 1e-9\n"
+    "s = P.Pastix(A, P.PastixConfig(tile_size=16, trace=True), device='cpu')\n"
+    "x = s.solve(b)\n"
+    "assert [e.name for e in s.tracer.events] == ['order', 'symbfact',\n"
+    "        'analyze', 'numfact', 'solve'] and np.abs(x - 1).max() < 1e-9\n"
+    "assert s.report.predicted_fact_time > 0\n"
 )
 
 

@@ -23,7 +23,10 @@ Laplacian, laplacian_2d(16) - 1.37 I (``tests/test_factorize.py``
   an error the refinement does not contract, in the reference as well:
   ``tests/ldlt_bf16_reading.py``); the pivots carry the inertia (one
   negative); S against the dense A22 - A21 A11⁻¹ A12 to 1e-5 · max|S|;
-  the reference's factors through the port's solve.
+  the reference's factors through the port's solve;
+- the spread between the left-looking and pair schedules' factors on an
+  indefinite shift-invert matrix, in each package (the port's at most 4
+  times the reference's, plus 1e-5).
 """
 
 import jax.numpy as jnp
@@ -52,6 +55,8 @@ from pastix_tpu_torch.numeric import factorize as F
 from pastix_tpu_torch.numeric import tile_factor as TF
 from pastix_tpu_torch.pastix import Pastix
 from pastix_tpu_torch.sparse import SparseMatrix
+
+from torch_common import no_calibration  # noqa: F401 (autouse)
 
 # xdist runs six test files at once: one intra-op thread per process keeps
 # six full-width PyTorch thread pools from oversubscribing the cores
@@ -241,3 +246,57 @@ def test_ldlt_schur_path():
     assert np.abs(S - S_ref).max() <= 1e-5 * np.abs(S_ref).max()
     assert any(c.pair_k is not None for lv in s._fact_fn.levels
                for c in lv.schur)
+
+
+def test_left_and_pair_spread_as_in_the_reference(monkeypatch):
+    """On an indefinite shift-invert matrix, poisson_3d(5) - σI with σ
+    halfway between its two smallest eigenvalues (host ``eigsh``), T=16,
+    fp32 updates: the port's left-looking and pair schedules differ (max
+    |left - pair| / max|left|, over the pool and over d) by at most 4
+    times the reference's left-looking against its pair schedule, plus
+    1e-5.  The schedules are selected as each package's tests select
+    them: the reference's left-looking E2 is ``use_pallas=True`` with
+    ``PASTIX_E2_LL=1`` in interpret mode (``tests/test_leftlook.py``),
+    here on every level (the unroll thresholds at 0, as the port runs
+    every level left-looking) and with full-height products
+    (``PASTIX_E2_ROWB=0``: the row bounds skip rows of zeros only, and
+    each height class is one more interpret-mode program), its pair
+    schedule the XLA ``gemm_scatter`` (``use_pallas=False``); the port's
+    are ``e2="left"`` and ``e2="pair"``."""
+    import scipy.sparse.linalg as spla
+
+    P = poisson_3d(5).to_scipy().tocsc()
+    lam = np.sort(spla.eigsh(P, k=2, sigma=0, which="LM")[0])
+    A = _shifted(poisson_3d(5), float(lam.mean()))
+    s = Pastix(A, PastixConfig(tile_size=16, factorization=LDLT,
+                               update_dtype="float32"), device="cpu")
+    s.analyze()
+    lay = s.layout
+    pool, _ = ref_coefinit(lay, s._A_perm)
+    eps = 1e-14 * float(abs(s._A_perm).max())
+
+    def spread(left, pair):
+        return max(float(np.abs(a - b).max() / np.abs(a).max())
+                   for a, b in zip(left, pair))
+
+    port = {}
+    for mode in ("left", "pair"):
+        fn = F.build_factorize_fn(lay, "cpu", LDLT, torch.float32, e2=mode)
+        p, d, npiv = fn(torch.from_numpy(pool.copy()), eps)
+        assert int(npiv) == 0 and int((d < 0).sum()) == 1
+        port[mode] = (p.numpy(), d.numpy())
+    for k, v in (("PASTIX_E2_LL", "1"), ("PASTIX_UNROLL_GEMM", "0"),
+                 ("PASTIX_UNROLL_DIAG", "0"), ("PASTIX_E2_ROWB", "0")):
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(JLL, "_INTERPRET", True)
+    monkeypatch.setattr(JPK, "_INTERPRET", True)
+    ref = {}
+    for mode, pallas in (("left", True), ("pair", False)):
+        fn = ref_factorize_fn(lay, JF.LDLT, update_dtype=jnp.float32,
+                              use_pallas=pallas)
+        p, d, _ = fn(jnp.asarray(pool), jnp.asarray(eps, jnp.float32))
+        ref[mode] = (np.asarray(p), np.asarray(d))
+    got, want = spread(port["left"], port["pair"]), spread(
+        ref["left"], ref["pair"])
+    assert want > 0  # the reference's two schedules sum differently
+    assert got <= 4 * want + 1e-5, (got, want)

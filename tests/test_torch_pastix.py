@@ -15,6 +15,8 @@ vectors (1e-5 relative).  Plus the front door's members and options,
 taken or refused naming their ROADMAP item.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -27,7 +29,10 @@ import pastix_tpu_torch
 from pastix_tpu_torch.config import Factorization, PastixConfig, RefinementMethod
 from pastix_tpu_torch.convert import factors_from_jax
 from pastix_tpu_torch.generators import poisson_3d
+from pastix_tpu_torch.order import compute_ordering
 from pastix_tpu_torch.pastix import Pastix
+
+from torch_common import no_calibration  # noqa: F401 (autouse)
 
 # xdist runs six test files at once: one intra-op thread per process keeps
 # six full-width PyTorch thread pools from oversubscribing the cores
@@ -169,9 +174,10 @@ def _plain_fn(**kw):
     (lambda: Pastix(poisson_3d(4), PastixConfig(
         compute_dtype="complex64", schur=True), device="cpu"),
      NotImplementedError, "reference has none"),
+    # taken since A3b ported fp64 Schur: the id keeps its place
     (lambda: Pastix(poisson_3d(4), PastixConfig(
-        compute_dtype="float64", schur=True), device="cpu"),
-     NotImplementedError, "ROADMAP.md A3b"),
+        compute_dtype="float64", schur=True, tile_size=16), device="cpu"),
+     None, None),
     (lambda: Pastix(poisson_3d(4), PastixConfig(
         compute_dtype="complex64", update_dtype="bfloat16"), device="cpu"),
      ValueError, "imaginary part"),
@@ -180,10 +186,19 @@ def _plain_fn(**kw):
 ], ids=["kind0", "kind1", "kind2", "kind3", "kind4"])
 def test_unported_kinds_raise(make, exc, match):
     """Every kind and dtype is ported (LDLᴴ and the complex and fp64
-    pools since A3 was ported); what still raises: complex Schur (the
-    reference has none), fp64 Schur (A3b), a complex pool with an update
-    dtype, and a non-fp32 pool with a right-looking or fused-diagonal
-    schedule (the fp32 kernels' schedules)."""
+    pools since A3 was ported, fp64 Schur since A3b: kind1 solves through
+    the Schur path); what still raises: complex Schur (the reference has
+    none), a complex pool with an update dtype, and a non-fp32 pool with
+    a right-looking or fused-diagonal schedule (the fp32 kernels'
+    schedules)."""
+    if exc is None:
+        s = make()
+        A = s.A
+        s.set_schur_unknowns(np.arange(A.n - 16, A.n))
+        x = s.solve_with_schur(A.to_scipy() @ np.ones(A.n))
+        assert s.factors.dtype == torch.float64
+        assert np.abs(x - 1).max() < 1e-12
+        return
     with pytest.raises(exc, match=match):
         make()
 
@@ -216,7 +231,9 @@ def test_unported_options_raise(cfg, taken):
     # taken since A7 ported the packed E2 path: the id keeps its item
     pytest.param("packed_update", True, None, id="packed_update-True-A7"),
     ("packed_update", None, None),
-    ("packed_update", False, None), ("trace", True, "A10"),
+    ("packed_update", False, None),
+    # taken since A10 ported the phase spans: the id keeps its item
+    pytest.param("trace", True, None, id="trace-True-A10"),
     # taken since A2 ported them: the ids keep the item that did
     pytest.param("fast_solve", False, None, id="fast_solve-False-A2"),
     pytest.param("device_refine", False, None, id="device_refine-False-A2"),
@@ -231,12 +248,23 @@ def test_config_fields_raise_or_are_taken(field, value, item):
     tiles and both refine on the host loop, and residual_dtype acts there
     (its residuals then accumulate in the matrix's fp64, as the
     reference's ``result_type`` makes them): with device_refine=False
-    too, the host loop runs with it."""
+    too, the host loop runs with it.  trace=True records the phases (the
+    device loop refines: no host ``refine`` span) and the numfact span
+    lasts ``report.fact_time``."""
     cfg = PastixConfig(**{field: value})
     if item is None:
         A = poisson_3d(4)
         s = Pastix(A, cfg, device="cpu")
         assert s.config is cfg
+        if field == "trace":
+            x = s.solve(A.to_scipy() @ np.ones(A.n))
+            assert np.abs(x - 1).max() < 1e-9
+            ev = {e.name: e for e in s.tracer.events}
+            assert [e.name for e in s.tracer.events] == [
+                "order", "symbfact", "analyze", "numfact", "solve"]
+            numfact = ev["numfact"].t1 - ev["numfact"].t0
+            assert abs(numfact - s.report.fact_time) <= 1e-3
+            return
         if field == "residual_dtype":
             s = Pastix(A, PastixConfig(residual_dtype=value,
                                        device_refine=False), device="cpu")
@@ -264,17 +292,20 @@ def test_config_fields_raise_or_are_taken(field, value, item):
     pytest.param("factorize", None, id="factorize-A2"),
     pytest.param("as_preconditioner", None, id="as_preconditioner-A2"),
     pytest.param("clean", None, id="clean-A2"),
-    ("dump_trace", "A10"),
+    # ported by A10: without tracing it raises ValueError, as the
+    # reference's does
+    pytest.param("dump_trace", None, id="dump_trace-A10"),
     pytest.param("pastix", None, id="pastix-A2"),
 ])
-def test_unported_members_raise(member, item):
-    """The reference's members, with the reference's signatures: the one
-    the port lacks raises naming its ROADMAP item; the others run:
+def test_unported_members_raise(member, item, tmp_path):
+    """The reference's members, with the reference's signatures, run:
     ``factorize(values)`` refactors new values (here A's own, in
     ``A.values`` order) to the same factors, ``as_preconditioner``
     solves, ``clean`` drops the factors and a later solve reruns the
-    pipeline, and ``pastix()`` on the CSC arrays solves; ``factorize()``
-    without values still factors."""
+    pipeline, ``pastix()`` on the CSC arrays solves, and ``dump_trace``
+    without ``trace=True`` raises ``ValueError``, as the reference's does,
+    where a traced solver writes its spans; ``factorize()`` without
+    values still factors."""
     from pastix_tpu_torch.pastix import pastix
 
     A = poisson_3d(4)
@@ -310,6 +341,16 @@ def test_unported_members_raise(member, item):
     elif member == "pastix":
         x, report = calls[member]()
         assert np.abs(x - 1).max() < 1e-9 and report.residual <= 1e-10
+    elif member == "dump_trace":
+        with pytest.raises(ValueError, match="tracing not enabled"):
+            calls[member]()
+        t = Pastix(A, PastixConfig(tile_size=8, trace=True), device="cpu")
+        t.factorize()
+        path = tmp_path / "trace.json"
+        t.dump_trace(str(path))
+        names = [e["name"] for e in json.loads(path.read_text())[
+            "traceEvents"] if e["ph"] == "X"]
+        assert names == ["order", "symbfact", "analyze", "numfact"]
 
 
 def _layout_arrays(lay):
@@ -401,14 +442,19 @@ def test_solve_leaves_callers_tf32_switches():
 
 def test_schur_unknowns_raise():
     """Schur unknowns with a complex pool raise (the reference has no
-    complex Schur), with an fp64 pool they name A3b; under LLᵗ, LDLᵗ, LU
-    and LDLᴴ (of a real pool: LDLᵗ) they are taken."""
-    for dt, match in (("complex64", "reference has none"),
-                      ("float64", "ROADMAP.md A3b")):
-        s = Pastix(poisson_3d(4), PastixConfig(compute_dtype=dt),
-                   device="cpu")
-        with pytest.raises(NotImplementedError, match=match):
-            s.set_schur_unknowns([0, 1])
+    complex Schur); with an fp64 pool they are taken since A3b ported
+    them (the Schur path solves); under LLᵗ, LDLᵗ, LU and LDLᴴ (of a real
+    pool: LDLᵗ) they are taken."""
+    s = Pastix(poisson_3d(4), PastixConfig(compute_dtype="complex64"),
+               device="cpu")
+    with pytest.raises(NotImplementedError, match="reference has none"):
+        s.set_schur_unknowns([0, 1])
+    A = poisson_3d(4)
+    s = Pastix(A, PastixConfig(compute_dtype="float64", tile_size=16),
+               device="cpu")
+    assert s.set_schur_unknowns(np.arange(48, 64)) is s and s.config.schur
+    x = s.solve_with_schur(A.to_scipy() @ np.ones(A.n))
+    assert s.factors.dtype == torch.float64 and np.abs(x - 1).max() < 1e-12
     for kind in (Factorization.LLT, Factorization.LDLT, Factorization.LU,
                  Factorization.LDLH):
         s = Pastix(poisson_3d(4), PastixConfig(factorization=kind),
@@ -461,3 +507,33 @@ def test_unsymmetric_matrix_refused_unless_lu():
             Pastix(M, PastixConfig(factorization=kind), device="cpu")
     s = Pastix(M, PastixConfig(factorization=Factorization.LU), device="cpu")
     assert not s.A.symmetric_storage and s.A.nnz == M.nnz
+
+
+def test_card_tile_sizes():
+    """The card's kernels take T in (32, 64, 128): on a card a tile size
+    the config leaves open is at least 32 (the reference picks 16 below
+    2000 dofs), and an fp32 pool with another one raises; an fp64 pool
+    (torch ops) keeps it; the CPU keeps the reference's rule.  The
+    ordering's leaves follow the same rule (one function decides)."""
+    from pastix_tpu_torch.config import CARD_TILES
+
+    def resolved(n, card=True, **kw):
+        s = Pastix(poisson_3d(4), PastixConfig(**kw), device="cpu")
+        if card:
+            s.device = torch.device("cuda", 0)
+        return s._resolve_tile_size(n)
+
+    assert CARD_TILES == (32, 64, 128)
+    assert resolved(500, card=False) == 16
+    assert resolved(500) == 32 and resolved(5000) == 32
+    assert resolved(20000) == 64 and resolved(100000) == 128
+    assert resolved(500, tile_size=64) == 64
+    assert resolved(500, tile_size=16, compute_dtype="float64") == 16
+    with pytest.raises(ValueError, match="card's kernels take"):
+        resolved(500, tile_size=16)
+    pat = poisson_3d(12).pattern_sym_scipy()
+    card, host, leaf32 = (compute_ordering(pat, PastixConfig(**kw), card=c)
+                          for c, kw in ((True, {}), (False, {}),
+                                        (False, {"nd_leaf_size": 32})))
+    assert np.array_equal(card.permtab, leaf32.permtab)
+    assert not np.array_equal(card.permtab, host.permtab)

@@ -62,6 +62,8 @@ from pastix_tpu_torch.solve import (
     run_host,
 )
 
+from torch_common import no_calibration  # noqa: F401 (autouse)
+
 # xdist runs six test files at once: one intra-op thread per process keeps
 # six full-width PyTorch thread pools from oversubscribing the cores
 torch.set_num_threads(1)

@@ -29,6 +29,8 @@ from pastix_tpu_torch.pastix import Pastix
 
 import torch
 
+from torch_common import no_calibration  # noqa: F401 (autouse)
+
 # xdist runs six test files at once: one intra-op thread per process keeps
 # six full-width PyTorch thread pools from oversubscribing the cores
 torch.set_num_threads(1)

@@ -2,7 +2,7 @@
 CPU: ``set_schur_unknowns`` → ``factorize`` → ``get_schur`` /
 ``solve_with_schur``.
 
-Cases: laplacian_2d(12) with its last 17 dofs (not tile-aligned, as
+Cases (float32): laplacian_2d(12) with its last 17 dofs (not tile-aligned, as
 ``tests/test_pastix_api.py`` takes them) and poisson_3d(6) with its last
 36, T=16, float32 factors.  Tolerances: with ``update_dtype=None`` the
 port's S matches the reference's to 1e-4 max|S| (both fp32, the port all
@@ -10,7 +10,11 @@ left-looking with fp32 products, the reference right-looking with XLA
 products) and the fp64 formula A22 - A21 A11^-1 A12 to 1e-5 max|S| (fp32
 rounding); ``solve_with_schur`` reaches a fp64 residual <= 1e-10 and
 agrees with the reference's x to 1e-8 relative (both refined to 1e-10, on
-matrices of condition below 100).
+matrices of condition below 100).  fp64 pools (ROADMAP A3b): poisson_3d(8),
+T=16, its last 64 unknowns, under LLᵗ, LDLᵗ and LU against the
+reference's fp64 ``get_schur`` (1e-12 max|S|; bf16 updates 1e-2) and
+``solve_with_schur`` to max|x - 1| <= 1e-10; a complex pool still
+raises (the reference has no complex Schur).
 """
 
 import numpy as np
@@ -28,6 +32,8 @@ from pastix_tpu_torch.numeric import pipelined as PL
 from pastix_tpu_torch.pastix import Pastix
 
 import torch
+
+from torch_common import no_calibration  # noqa: F401 (autouse)
 
 # xdist runs six test files at once: one intra-op thread per process keeps
 # six full-width PyTorch thread pools from oversubscribing the cores
@@ -176,3 +182,68 @@ def test_get_schur_without_unknowns_raises():
     s = Pastix(laplacian_2d(6), PastixConfig(tile_size=16), device="cpu")
     with pytest.raises(ValueError, match="no Schur unknowns"):
         s.get_schur()
+
+
+# fp64 Schur (the residue by torch ops in the pool's dtype): poisson_3d(8),
+# T=16, the last 64 unknowns, against the reference's fp64 get_schur
+NX64, NS64 = 8, 64
+
+
+@pytest.mark.parametrize("upd", [None, "bfloat16"], ids=["fp64", "bf16"])
+@pytest.mark.parametrize("kind", ["LLT", "LDLT", "LU"])
+def test_fp64_schur_matches_reference(kind, upd):
+    """With fp64 updates S agrees with the reference's fp64 S to 1e-12
+    max|S| (both 3e-16 off the dense formula) and solve_with_schur gives
+    max|x - 1| <= 1e-10; with bf16 updates on the fp64 pool (operands
+    rounded, products accumulated in fp64, as the reference's) S agrees
+    with the reference's to 1e-2 max|S| (this file's bf16 tolerance: 2^-8
+    operand rounding) and the solve refines to 1e-10.  No hand kernel's
+    twin runs: the route is torch ops."""
+    from pastix_tpu.config import Factorization as JF
+
+    from pastix_tpu_torch.config import Factorization
+
+    A = poisson_3d(NX64)
+    schur = np.arange(A.n - NS64, A.n)
+    b = A.to_scipy() @ np.ones(A.n)
+    ref = JPastix(j_poisson_3d(NX64), JPastixConfig(
+        tile_size=16, compute_dtype="float64", factorization=JF[kind],
+        update_dtype=upd))
+    ref.set_schur_unknowns(schur)
+    ref.factorize()
+    S_ref = ref.get_schur()
+    s = Pastix(A, PastixConfig(tile_size=16, compute_dtype="float64",
+                               factorization=Factorization[kind],
+                               update_dtype=upd), device="cpu")
+    s.set_schur_unknowns(schur)
+    t0 = PL.gemm_scatter_pipelined.twin_launches
+    s.factorize()
+    assert s.factors.dtype == torch.float64
+    assert any(lv.res for lv in s._fact_fn.levels)
+    S = s.get_schur()
+    x = s.solve_with_schur(b)
+    assert PL.gemm_scatter_pipelined.twin_launches == t0
+    tol = 1e-12 if upd is None else 1e-2
+    assert np.abs(S - S_ref).max() <= tol * np.abs(S_ref).max()
+    assert s.report.residual <= 1e-10
+    if upd is None:
+        assert np.abs(x - 1).max() <= 1e-10
+
+
+@pytest.mark.parametrize("dt", ["complex64", "complex128"])
+def test_complex_schur_still_raises(dt):
+    """The reference has no complex Schur complement: set_schur_unknowns
+    refuses a complex pool, and so does its factorization route."""
+    from pastix_tpu_torch.analyze import build_layout
+    from pastix_tpu_torch.numeric import factorize as F
+
+    s = Pastix(poisson_3d(4), PastixConfig(compute_dtype=dt, tile_size=16),
+               device="cpu")
+    with pytest.raises(NotImplementedError, match="reference has none"):
+        s.set_schur_unknowns([0, 1])
+    s = _port(poisson_3d(4), np.arange(48, 64))
+    s.symbfact()
+    lay = build_layout(s._pat_perm_ext, 16,
+                       schur_first_bcol=s._schur_first_bcol)
+    with pytest.raises(NotImplementedError, match="no complex Schur"):
+        F.build_factorize_fn(lay, "cpu", dtype=getattr(torch, dt))
