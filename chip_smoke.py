@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (``pastix_tpu_torch``) on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port (``pastix_tpu_torch``) on NVIDIA GPUs (one
+is enough; phase 21 takes up to 4).
 
     python3 chip_smoke.py [--nx N] [--schur-nx N] [--lu-nx N] [--ldlt-nx N]
                           [--ooc-nx N] [--ooc-mb MB]
@@ -298,6 +299,35 @@ prints the final ``ok`` line:
    ``pastix_tpu_torch/examples`` in this process with ``--device cuda``
    at ``tests/test_examples.py``'s arguments, each exiting 0 and
    printing that test's lines; the phase's seconds are logged;
+21. the mesh (ROADMAP A9, ``pastix_tpu_torch/parallel``), T=128: ranks
+   started by ``parallel.launch.run_ranks``, the mode logged.  With two
+   or more cards, NCCL with one rank a card (up to 4; and a (2, 2) dp x
+   tp mesh with 4); with one card, 4 ranks sharing it under gloo (owner
+   runs at MESH_SHARED_NX: gloo carries every collective through host
+   memory), then 1 rank under NCCL, whose collectives run on the card as
+   on a group of several.  The runs: the owner-computes main path
+   (``poisson_3d(--nx)``, bf16 updates), LU on
+   ``convection_diffusion_3d(--lu-nx)``, LDLᵗ on phase 8's matrix with
+   fp32 updates, then at MESH_SMALL_NX the replicated pool
+   (``shard_pool=False``, the device loop: K2), Schur unknowns and the
+   subtree schedule.  On every rank: the counts set to 0 just before the
+   timed factorization and read after the solve (K3 on each run, K4 on
+   LU and LDLᵗ, K2 on the replicated ones; no twin), the refined
+   residual <= 1e-10, the pools against one card's factorization of the
+   same analysis in fp64 a level at a time, within TOL_E2 or TOL_ORDER
+   times one card's own fp32 error there (its pair schedule, the same
+   right-looking order and update dtype), ``get_schur`` within 1e-4 of
+   the sparse-LU S,
+   and K3 and K4 against their twins on the rank's busiest level with a
+   second run bit-identical (their errors join the ``[xab]`` and K4
+   rows); logged: ``fact_ms`` beside one card's on the same analysis,
+   ``nloc`` against npool, each rank's peak memory, the owner plan's
+   flop imbalance and halo MiB; K3 timed on rank 0's busiest owner level
+   with the other ranks held at a barrier (a kernels row a mode); any
+   rank's failure fails the script.  The 4 gloo ranks' owner runs at
+   the full sizes (about 7 minutes) are not in the phase: call
+   ``mesh_path(64, 70, 64, MESH_SMALL_NX, 64, ...)`` from a script that
+   builds the library first;
 
 then the card's nvidia-smi line, one JSON line of the kernels (each
 variant on its own line of the list, ``launches`` from the path that runs
@@ -330,7 +360,9 @@ CLEAN_SLACK = 64 * 2 ** 20  # bytes clean() may leave allocated
 HERM_DELTA = 0.1
 TOL_ORDER = 4.0  # streamed LDLᵗ pools against resident ones a level at
 # a time, in units of that level's spread between the resident
-# left-looking and pair schedules (where it is above TOL_E2 / 4)
+# left-looking and pair schedules (where it is above TOL_E2 / 4); a
+# mesh's pools against fp64 a level at a time, in units of one card's
+# fp32 error there
 TOL_CARD = 1e-4  # card against CPU, complex64 pool and solution, max|ref|
 TOL_BMM = 1e-5  # complex64 bmm against complex128 under pin_precision
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
@@ -3633,6 +3665,484 @@ def tail_path(nx, dev, paths):
     return out
 
 
+TOL_MESH_S = 1e-4  # get_schur on a mesh against the sparse-LU S (fp32)
+MESH_SMALL_NX = 24  # phase 21's replicated, Schur and subtree runs
+MESH_SHARED_NX = 24  # its owner runs on ranks sharing one card (gloo)
+
+
+def mesh_matrix(spec):
+    """The matrix of a phase 21 run: (SparseMatrix, label)."""
+    from pastix_tpu_torch.generators import convection_diffusion_3d, poisson_3d
+
+    kind, nx = spec
+    if kind == "poisson":
+        return poisson_3d(nx), f"poisson_3d({nx})"
+    if kind == "convdiff":
+        return convection_diffusion_3d(nx), f"convection_diffusion_3d({nx})"
+    return shift_invert(nx)[0], f"poisson_3d({nx}) - sigma I"
+
+
+def rank_barrier(dev):
+    """Every rank's queued work on ``dev`` done, then all ranks met (an
+    all_reduce of one element: NCCL and gloo alike)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.synchronize(dev)
+    dist.all_reduce(torch.zeros(1, device=dev))
+    torch.cuda.synchronize(dev)
+
+
+def mesh_fn_parts(fn):
+    """(diagonal-tile index tensors, K3 plans) of a mesh factorization
+    program: the owner path's rank levels, the replicated path's levels,
+    the subtree's local and shared levels."""
+    diags, plans = [], []
+    for r in list(getattr(fn, "levels", [])):
+        lv = getattr(r, "lv", r)
+        diags.append(lv.diag)
+        for name in ("e2", "e2_u", "pairs", "pairs_u"):
+            p = getattr(r, name, None)
+            if isinstance(p, list) and p:
+                plans.append(p)
+    for lv, pairs in getattr(fn, "local", []):
+        diags.append(lv.diag)
+        if isinstance(pairs, list) and pairs:
+            plans.append(pairs)
+    return diags, plans
+
+
+def mesh_checked_factorize(s, label):
+    """One more factorization of ``s`` with K3 and K4 held against their
+    twins (``check_k3``, ``check_k4``: TOL_E2 / TOL_K4, two runs
+    bit-identical) on the rank's inputs at its busiest level (the K3 plan
+    with most pairs, the K4 call with most tiles), and K3 timed there
+    (CUDA events) beside its twin on rank 0 after the factorization, the
+    other ranks held at a barrier meanwhile (no other rank's work on a
+    shared card).  Returns (k3 max|d|, k4 max|d|, rank 0's K3 (ms,
+    plain_ms, bound, pairs)), the K4 error None where no K4 runs."""
+    import torch
+    import torch.distributed as dist
+    from pastix_tpu_torch.numeric import factorize as F
+    from pastix_tpu_torch.numeric import pipelined as PL
+    from pastix_tpu_torch.parallel import owner as O
+    from pastix_tpu_torch.parallel import subtree as ST
+
+    diags, plans = mesh_fn_parts(s._fact_fn)
+    busiest = max(plans, key=lambda p: sum(c.n_pairs for c in p), default=None)
+    k4_n = max((int(d.numel()) for d in diags), default=0)
+    out = {"k3": 0.0, "k4": None, "k3_in": None, "k3_timed": None}
+    # the replicated path reaches K3 through owner.run_pairs
+    mods = (O, ST)
+    tf = F.tile_factor
+
+    def copy(v):
+        if torch.is_tensor(v):
+            return v.clone()
+        return tuple(copy(x) for x in v) if isinstance(v, tuple) else v
+
+    def k3(pool, plan, update_dtype=None, **kw):
+        if plan is busiest and out["k3_in"] is None:
+            out["k3"] = check_k3(pool, plan, update_dtype,
+                                 f"{label} busiest level", quiet=True, **kw)
+            out["k3_in"] = (pool.clone(), update_dtype,
+                            {k: copy(v) for k, v in kw.items()})
+        return PL.gemm_scatter_pipelined(pool, plan, update_dtype, **kw)
+
+
+    def k4(pool, diag, eps, npiv, lu):
+        if diag.numel() == k4_n and out["k4"] is None and k4_n:
+            out["k4"] = check_k4(pool[diag].contiguous(), eps, lu,
+                                 f"{label} busiest level", quiet=True)
+        return tf(pool, diag, eps, npiv, lu)
+
+    try:
+        for m in mods:
+            m.gemm_scatter_pipelined = k3
+        F.tile_factor = k4
+        s.factorize()
+    finally:
+        for m in mods:
+            m.gemm_scatter_pipelined = PL.gemm_scatter_pipelined
+        F.tile_factor = tf
+    rank_barrier(s.device)
+    if dist.get_rank() == 0 and out["k3_in"] is not None:
+        scratch, update_dtype, kw = out["k3_in"]
+        ms = cuda_ms(lambda: PL.gemm_scatter_pipelined(
+            scratch, busiest, update_dtype, **kw))
+        plain = cuda_ms(lambda: PL.gemm_scatter_pipelined_ref(
+            scratch, busiest, update_dtype, **kw))
+        T = scratch.shape[-1]
+        xa = kw.get("xab")
+        pos = set()
+        for c in busiest:
+            pos.update(c.ext_a.tolist() if xa is not None
+                       else c.pair_a.tolist())
+            pos.update(c.ext_b.tolist() if xa is not None
+                       else c.pair_b.tolist())
+        dsts = {int(x) for c in busiest for x in c.seg_dst.tolist()}
+        flops = sum(k3_flops(c, T) for c in busiest)
+        nbytes = (len(pos) + 2 * len(dsts)) * T * T * 4
+        peak = PEAK_BF16 if update_dtype == torch.bfloat16 else PEAK_FP32
+        out["k3_timed"] = (ms, plain, bound(flops, peak, nbytes),
+                           sum(c.n_pairs for c in busiest))
+    out["k3_in"] = None
+    rank_barrier(s.device)
+    return out["k3"], out["k4"], out["k3_timed"]
+
+
+def one_card(s, e2, dtype=None, runs=2):
+    """The one-card factorization of ``s``'s own layout (the same host
+    analysis) by ``numeric.factorize`` with schedule ``e2``, in ``dtype``
+    (fp32 with ``s``'s update dtype; fp64 with none), timed on its last
+    of ``runs``: (Factors, ms)."""
+    import torch
+    from pastix_tpu_torch.config import Factorization
+    from pastix_tpu_torch.numeric.factorize import (
+        build_coefinit_fn, build_factorize_fn, factorize,
+    )
+    from pastix_tpu_torch.pastix import _UPDATE_DTYPES
+
+    lay, dev, kind = s.layout, s.device, s._kind
+    dtype = dtype or torch.float32
+    upd = (_UPDATE_DTYPES[s.config.update_dtype] if dtype == torch.float32
+           else None)
+    coef = build_coefinit_fn(lay, s._A_perm, dev,
+                             for_lu=kind == Factorization.LU, dtype=dtype)
+    fn = build_factorize_fn(lay, dev, kind, update_dtype=upd,
+                            dense_tail=s._dense_tail, e2=e2, dtype=dtype)
+    for _ in range(runs):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        f = factorize(lay, s._A_perm, coef, fn, dev,
+                      pivot_threshold=s.config.static_pivoting_threshold)
+        torch.cuda.synchronize(dev)
+    return f, (time.perf_counter() - t0) * 1e3
+
+
+def mesh_pool_levels(s, pair, exact):
+    """The mesh's pools and one card's against ``exact``, one card's
+    fp64 factorization of the same analysis, a level at a time (the
+    tiles of each level's block columns; LDLᵗ's pivots of its columns):
+    max|mesh - exact| and max|pair - exact|, ``pair`` one card's fp32
+    factorization in the same right-looking order and update dtype, over
+    the rank's tiles (the owner path's own slots, the replicated pools
+    whole), and max|exact|: this rank's (2 * levels + 1) maxima."""
+    import torch
+
+    lay = s.layout
+    nl = len(lay.levels)
+    lev = np.zeros(lay.nbc, np.int64)
+    for i, lv in enumerate(lay.levels):
+        lev[np.asarray(lv.cols)] = i
+    tile_lev = lev[np.asarray(lay.blk_col)]
+    sh = s._pool_sharding
+    mine = None if sh is None else sh.mine(s._tp.me)
+    vals = np.zeros(2 * nl + 1)
+    for name in ("pool", "pool_u", "d"):
+        got = getattr(s.factors, name)
+        if got is None:
+            continue
+        ref, fp64 = getattr(pair, name), getattr(exact, name)
+        at = lev if name == "d" else tile_lev
+        rows = np.arange(at.size) if mine is None or name == "d" else mine
+        for lo in range(0, rows.size, 4096):  # fp64 differences in chunks
+            part = rows[lo:lo + 4096]
+            idx = torch.as_tensor(part, device=s.device)
+            g = got[lo:lo + part.size] if rows is mine else got[idx]
+            x = fp64[idx]
+            dims = tuple(range(1, x.dim()))
+            np.maximum.at(vals[:nl], at[part], (
+                g.double() - x).abs().amax(dim=dims).cpu().numpy())
+            np.maximum.at(vals[nl:-1], at[part], (
+                ref[idx].double() - x).abs().amax(dim=dims).cpu().numpy())
+            vals[-1] = max(vals[-1], float(x.abs().max()))
+    return vals
+
+
+def mesh_pool_verdict(s, vals):
+    """The mesh's pools as accurate as one card's: the rank maxima of
+    :func:`mesh_pool_levels` reduced over the process group, each
+    level's max|mesh - exact| held to TOL_E2 or TOL_ORDER times its
+    max|pair - exact|, both relative to max|exact|.  Returns the
+    figures, ``ok`` among them."""
+    import torch
+    import torch.distributed as dist
+
+    nl = len(s.layout.levels)
+    red = torch.as_tensor(vals, device=s.device)
+    dist.all_reduce(red, op=dist.ReduceOp.MAX)
+    vals = red.cpu().numpy()
+    err, one = vals[:nl] / vals[-1], vals[nl:-1] / vals[-1]
+    tol = np.maximum(TOL_E2, TOL_ORDER * one)
+    w = int(np.argmax(err / tol))
+    return {"mesh_err": float(err.max()), "one_card_err": float(one.max()),
+            "levels": nl, "held_to_tol_e2": int((tol == TOL_E2).sum()),
+            "worst": w, "worst_err": float(err[w]),
+            "worst_tol": float(tol[w]), "ok": bool((err <= tol).all())}
+
+
+def mesh_run(spec):
+    """One phase 21 run in a rank: analyze, factorize twice (the second
+    timed, the counts set to 0 just before it and read after the solve),
+    a refined solve of b = A.1 (Schur: ``get_schur`` against the
+    sparse-LU S and ``solve_with_schur``), then the pools against one
+    card's (``spec["compare"]``) and K3/K4 against their twins
+    (``spec["check"]``)."""
+    import torch
+    import torch.distributed as dist
+    from pastix_tpu_torch import Pastix
+    from pastix_tpu_torch.config import Factorization, PastixConfig
+    from pastix_tpu_torch.parallel.owner import distribution_report
+
+    A, mlabel = mesh_matrix(spec["matrix"])
+    cfg = PastixConfig(**spec["cfg"])
+    label = f"{spec['label']} {mlabel}"
+    t_run = time.perf_counter()
+
+    def note(what):  # rank 0's progress, as it happens
+        if dist.get_rank() == 0:
+            log(f"    [rank 0, {time.perf_counter() - t_run:.1f} s] "
+                f"{label}: {what}")
+
+    s = Pastix(A, cfg)
+    dev = s.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    schur = last_plane(spec["matrix"][1]) if spec.get("schur") else None
+    if schur is not None:
+        s.set_schur_unknowns(schur)
+    t0 = time.perf_counter()
+    s.analyze()
+    analyze_s = time.perf_counter() - t0
+    note("analyzed")
+    s.factorize()
+    reset_counts()
+    s.factorize()
+    fact_ms = s.report.fact_time * 1e3
+    note(f"factorized twice ({fact_ms:.1f} ms)")
+    M = A.to_scipy()
+    b = M @ np.ones(A.n)
+    s_err = None
+    if schur is not None:
+        S = s.get_schur()
+        if dist.get_rank() == 0:  # the host's sparse LU, once
+            S_ref = schur_reference(A, schur)
+            s_err = float(np.abs(S - S_ref).max() / np.abs(S_ref).max())
+        x = s.solve_with_schur(b)
+    else:
+        x = s.solve(b)
+    torch.cuda.synchronize(dev)
+    launches = {k: fn.launches for k, fn in counters().items()}
+    twins = {k: fn.twin_launches for k, fn in counters().items()}
+    res = float(np.linalg.norm(b - M @ x) / np.linalg.norm(b))
+    note(f"solved ({s.report.refine_iters} steps, residual {res:.3e})")
+    out = {
+        "label": label, "rank": dist.get_rank(), "device": str(dev),
+        "fact_ms": fact_ms, "analyze_s": analyze_s,
+        "solve_ms": s.report.solve_time * 1e3,
+        "refine_iters": s.report.refine_iters,
+        "residual": max(res, s.report.residual or 0.0),
+        "static_pivots": s.report.static_pivots,
+        "npool": s.layout.npool, "schur_err": s_err,
+        "launches": {k: v for k, v in launches.items() if v},
+        "twins": sum(twins.values()),
+        "route": ("owner" if s._pool_sharding is not None else
+                  "subtree" if hasattr(s._fact_fn, "local") else
+                  "replicated"),
+        "device_refine": s._sharded_refine_fn is not None,
+    }
+    sh = s._pool_sharding
+    if sh is not None:
+        out["nloc"] = sh.nloc
+        rep = distribution_report(s.layout, sh, dense_tail=s._dense_tail
+                                  if s._kind == Factorization.LLT else None)
+        out["flop_imbalance"] = rep["flop_imbalance"]
+        out["halo_mib"] = float(rep["halo_bytes"].sum() / 2 ** 20)
+        out["memory_bytes"] = s.report.memory_bytes
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if spec.get("compare"):
+        # ranks sharing a card take turns: one card's three
+        # factorizations of a full-size matrix on every rank at once
+        # would not fit, and each times its own alone
+        nr = dist.get_world_size()
+        turns = nr if nr > torch.cuda.device_count() else 1
+        for t in range(turns):
+            if turns == 1 or t == dist.get_rank():
+                left, out["one_card_ms"] = one_card(s, "left")
+                del left
+                pair, _ = one_card(s, "pair", runs=1)
+                exact, _ = one_card(s, None, torch.float64, runs=1)
+                vals = mesh_pool_levels(s, pair, exact)
+                del pair, exact
+                torch.cuda.empty_cache()
+            if turns > 1:
+                rank_barrier(dev)
+        out["pools"] = mesh_pool_verdict(s, vals)
+        note("pools against one card's fp64: " + json.dumps(out["pools"]))
+    if spec.get("check"):
+        out["k3_err"], out["k4_err"], out["k3_timed"] = (
+            mesh_checked_factorize(s, label))
+        note("K3/K4 checked")
+    del s
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank(rank, runs):
+    """The body of each phase 21 rank: the process pins true fp32 as the
+    parent does, then runs ``runs`` in order (every rank the same)."""
+    import torch
+
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False
+    return [mesh_run(spec) for spec in runs]
+
+
+def mesh_runs(nx, lu_nx, ldlt_nx, small_nx, shape, full):
+    """The runs of one phase 21 mode on a mesh of ``shape``: with
+    ``full`` the owner-computes main path (LLᵗ poisson_3d(nx), T=128,
+    bf16 updates), LU on convection_diffusion_3d(lu_nx) and LDLᵗ on phase
+    8's matrix (at ``ldlt_nx``) with fp32 updates; then, at
+    ``small_nx``, the replicated pool (``shard_pool=False``, the device
+    loop), Schur unknowns (the plane z = small_nx - 1) and the subtree
+    schedule."""
+    base = dict(tile_size=128, mesh_shape=shape,
+                mesh_axis_names=("dp", "tp")[2 - len(shape):])
+    bf = dict(base, update_dtype="bfloat16")
+    runs = []
+    if full:
+        runs += [
+            {"label": "owner LLT", "matrix": ("poisson", nx), "cfg": bf,
+             "need": ("K3",), "compare": True, "check": True},
+            {"label": "owner LU", "matrix": ("convdiff", lu_nx),
+             "cfg": dict(bf, factorization="LU"), "need": ("K3", "K4"),
+             "compare": True, "check": True},
+            {"label": "owner LDLT fp32", "matrix": ("shift", ldlt_nx),
+             "cfg": dict(base, factorization="LDLT"), "need": ("K3", "K4"),
+             "compare": True, "check": True},
+        ]
+    runs += [
+        {"label": "replicated LLT", "matrix": ("poisson", small_nx),
+         "cfg": dict(bf, shard_pool=False), "need": ("K3", "K2"),
+         "compare": True, "check": True},
+        {"label": "Schur LLT", "matrix": ("poisson", small_nx),
+         "cfg": dict(base), "need": ("K3",), "schur": True},
+        {"label": "subtree LLT", "matrix": ("poisson", small_nx),
+         "cfg": dict(base, dist_strategy="subtree"), "need": ("K3",),
+         "compare": True, "check": True},
+    ]
+    for r in runs:
+        if "factorization" in r["cfg"]:
+            from pastix_tpu_torch.config import Factorization
+
+            r["cfg"]["factorization"] = Factorization[
+                r["cfg"]["factorization"]]
+    return runs
+
+
+def mesh_path(nx, lu_nx, ldlt_nx, small_nx, shared_nx, errs, main_ms):
+    """Phase 21: the mesh paths (``pastix_tpu_torch/parallel``) on ranks
+    started by ``parallel.launch.run_ranks``.  With two or more cards:
+    NCCL, one rank a card for up to 4 (and a (2, 2) mesh with 4); with
+    one: 4 ranks sharing it under gloo (its owner runs at ``shared_nx``:
+    gloo carries every collective through host memory), then 1 rank
+    under NCCL (at the full sizes; a group of one runs every collective).
+    Every
+    run must reach TOL_RES on every rank, launch the kernels it needs on
+    every rank (counts set to 0 before its timed factorization and read
+    after its solve) and run no twin; the pools are as accurate as one
+    card's a level at a time (:func:`mesh_pool_verdict`); K3 and K4 hold
+    against their twins on each rank's busiest level.
+    Returns the rows for the kernels line, the phase's figures and its
+    seconds."""
+    import torch
+
+    from pastix_tpu_torch.parallel.launch import run_ranks
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    modes = []
+    full = (nx, lu_nx, ldlt_nx)
+    if cards >= 2:
+        nr = min(cards, 4)
+        modes.append((f"NCCL, {nr} ranks, one a card", "nccl",
+                      list(range(nr)), (nr,), full))
+        if nr == 4:
+            modes.append(("NCCL, (2, 2) dp x tp mesh", "nccl",
+                          list(range(4)), (2, 2), None))
+    else:
+        modes.append(("gloo, 4 ranks sharing one card", "gloo", [0] * 4,
+                      (4,), (shared_nx, shared_nx, shared_nx)))
+        modes.append(("NCCL, 1 rank", "nccl", [0], (1,), full))
+    figures, rows = {}, {}
+    for mode, backend, devices, shape, sizes in modes:
+        t0 = time.perf_counter()
+        runs = mesh_runs(*(sizes or full), small_nx, shape, bool(sizes))
+        log(f"phase 21 mode: {mode}, mesh {shape}, "
+            f"{len(runs)} runs")
+        out = run_ranks(mesh_rank, len(devices), backend, devices,
+                        args=(runs,), timeout=900)
+        for i, spec in enumerate(runs):
+            per = [o[i] for o in out]
+            label = per[0]["label"]
+            for r in per:
+                log(f"  {label} rank {r['rank']} ({r['device']}): "
+                    + json.dumps({k: v for k, v in r.items()
+                                  if k not in ("label", "rank", "device")}))
+                if not r["residual"] <= TOL_RES:
+                    raise AssertionError(f"{label} rank {r['rank']}: "
+                                         f"residual {r['residual']:.3e}")
+                if any(not r["launches"].get(k) for k in spec["need"]) or \
+                        r["twins"]:
+                    raise AssertionError(
+                        f"{label} rank {r['rank']}: launches "
+                        f"{r['launches']}, twins {r['twins']}; needs "
+                        f"{spec['need']}")
+                if spec.get("schur") and r["rank"] == 0 and not (
+                        r["schur_err"] <= TOL_MESH_S):
+                    raise AssertionError(f"{label}: get_schur off by "
+                                         f"{r['schur_err']:.3e}")
+                if spec.get("compare") and not r["pools"]["ok"]:
+                    raise AssertionError(
+                        f"{label}: the pools differ from one card's: "
+                        + json.dumps(r["pools"]))
+                if spec.get("check"):
+                    errs["K3xab"] = max(errs["K3xab"], r["k3_err"])
+                    if r["k4_err"] is not None:
+                        k4key = ("K4lu" if spec["cfg"].get("factorization")
+                                 and spec["cfg"]["factorization"].name == "LU"
+                                 else "K4ldlt")
+                        errs[k4key] = max(errs[k4key], r["k4_err"])
+            figures[f"{mode}: {label}"] = {
+                "fact_ms": [r["fact_ms"] for r in per],
+                "one_card_ms": per[0].get("one_card_ms"),
+                "nloc": per[0].get("nloc"), "npool": per[0]["npool"],
+                "peak_gib": [r["peak_gib"] for r in per],
+                "flop_imbalance": per[0].get("flop_imbalance"),
+                "halo_mib": per[0].get("halo_mib"),
+                "launches": [r["launches"] for r in per],
+                "residual": per[0]["residual"],
+                "pools": per[0].get("pools"),
+                "k3_err": max((r.get("k3_err") or 0.0) for r in per),
+                "k4_err": max((r.get("k4_err") or 0.0) for r in per),
+            }
+            if spec.get("check") and label.startswith("owner LLT"):
+                rows[f"{backend} x{len(devices)}"] = (
+                    per[0]["launches"]["K3"], max(r["k3_err"] for r in per),
+                    per[0]["k3_timed"])
+        log(f"  mode {mode}: {time.perf_counter() - t0:.1f} s")
+    for key, f in figures.items():
+        if f["one_card_ms"]:
+            log(f"  {key}: fact_ms {min(f['fact_ms']):.1f}-"
+                f"{max(f['fact_ms']):.1f} against one card "
+                f"{f['one_card_ms']:.1f} (phase 4: {main_ms:.1f}), nloc "
+                f"{f['nloc']} of npool {f['npool']}, peak "
+                f"{max(f['peak_gib']):.3f} GiB")
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 21: {seconds:.1f} s")
+    return rows, figures, seconds
+
+
 def sass_count(build, kernel, ops, also=None):
     """How many of each SASS opcode of ``ops`` the library's ``kernel``
     functions hold (``cuobjdump -sass``, run once a library; ``also``:
@@ -3752,7 +4262,6 @@ def main() -> int:
     native.get_lib()
     log(f"native host library: {native.status} "
         f"({time.perf_counter() - t0:.2f} s)")
-
     bf16, fp32 = torch.bfloat16, torch.float32
 
     # 3. kernels against their twins on poisson_3d(24) layouts
@@ -3903,6 +4412,14 @@ def main() -> int:
                                     "LDLT": ldlt_num})
     elapsed("phase 20")
 
+    # 21. the mesh paths: ranks of a process group, K3, K4 and K2 on each
+    # (the ranks are other processes: this one's cached blocks go back)
+    torch.cuda.empty_cache()
+    mesh_rows, mesh = mesh_path(args.nx, args.lu_nx, args.ldlt_nx,
+                                MESH_SMALL_NX, MESH_SHARED_NX, errs,
+                                main_num["fact_ms"])[:2]
+    elapsed("phase 21")
+
     # no single PyTorch call computes a gather-GEMM-scatter over a pair
     # list or a block-sparse triangular sweep: library_ms is null but for
     # K4 LU (lu_factor_ex without pivoting) and K13 (index_select of the
@@ -4013,6 +4530,12 @@ def main() -> int:
              "bound_by": bd[1], "launches": n}))
     # dma_probe's twin is the closed form (two rows a copy), not copies
     kernels[-1]["plain"] = "closed form: reads two rows a copy, no copies"
+    # phase 21: K3 on the owner-computes main path, rank 0 of each mode
+    # (launches of its timed factorization and solve; timed on its
+    # busiest level's halo and touched buffer, the other ranks held)
+    for mode, (n_k3, err, (ms, plain, bd, _)) in mesh_rows.items():
+        kernels.append(entry(f"{k3}[xab,mesh,{mode}]", f"{k3}.cu", k3_at,
+                             n_k3, err, (ms, plain, bd)))
     for rows, S, D, steps, reps, ctas, piece, ms, plain, bd, lib, n in (
             probes):
         log(f"probe rows={rows} S={S} D={D} steps={steps} reps={reps} "
@@ -4041,6 +4564,8 @@ def main() -> int:
     for label, num in ooc.items():
         log(f"path ooc {label}: " + json.dumps(num))
     log("phase 20: " + json.dumps(tail))
+    for label, num in mesh.items():
+        log(f"path mesh {label}: " + json.dumps(num))
     for T, (ms, plain, bd, lib, dev_ms, dev_lib) in k8_one.items():
         log(f"K8 one tile T={T}: " + json.dumps(
             {"ms": ms, "plain_ms": plain, "bound_ms": bd[0],

@@ -62,7 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "with cached analysis (reference step-by-step.c)")
     p.add_argument("--mesh", metavar="SHAPE", default=None,
                    help="device mesh, e.g. 8 or 2x4 (the reference's "
-                        "process-count flag; axes dp x tp when 2D)")
+                        "process-count flag; axes dp x tp when 2D): one "
+                        "rank a mesh device, e.g. under torchrun "
+                        "--nproc-per-node 8 (NCCL; gloo with --cpu)")
     p.add_argument("--ooc", type=int, metavar="MB", default=None,
                    help="stream factorization under this HBM budget "
                         "(IPARM_OOC_LIMIT)")
@@ -137,6 +139,7 @@ def main(argv=None) -> int:
         kw["mesh_shape"] = shape
         if len(shape) == 2:
             kw["mesh_axis_names"] = ("dp", "tp")
+        _join_launcher_group(args.cpu)
     if args.ooc is not None:
         kw["ooc"] = True
         kw["ooc_limit_mb"] = args.ooc
@@ -178,6 +181,23 @@ def main(argv=None) -> int:
         print(solver.report.summary())
     print(f"residual ||b-Ax||/||b|| = {r:.3e}   forward error = {ferr:.3e}")
     return 0 if r < 1e-6 else 1
+
+
+def _join_launcher_group(cpu: bool) -> None:
+    """Under a launcher that sets ``WORLD_SIZE`` (``torchrun``), the
+    process group it describes (NCCL, gloo with ``--cpu``); else the
+    caller's, or none (then the mesh raises naming its rank count)."""
+    import os
+
+    import torch.distributed as dist
+
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return
+    if not cpu:
+        import torch
+
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("gloo" if cpu else "nccl")
 
 
 if __name__ == "__main__":

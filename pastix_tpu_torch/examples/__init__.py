@@ -1,5 +1,5 @@
 """The port's examples: counterparts of the reference's ``examples/*.py``
-on one device (``multi_device`` waits for the multi-GPU slice).
+(``multi_device`` over a mesh of ranks, the others on one device).
 
 Each takes the reference script's arguments plus ``--device D`` (default
 ``cuda``; ``cpu`` runs the plain PyTorch twins) and prints the lines the
@@ -23,6 +23,11 @@ CHECKS = {
     "out_of_core": ([], ["segments under", "residual"]),
 }
 NAMES = tuple(CHECKS)
+# the examples that start ranks (``parallel.launch``): checked by the
+# mesh tests, which start rank processes, not with the one-device ones
+MESH_CHECKS = {
+    "multi_device": ([], ["pool sharded", "residual"]),
+}
 
 
 def split_device(argv):

@@ -267,6 +267,32 @@ def pipeline_plan(schedule, device, ctas=None) -> list:
     return out
 
 
+def operand_plan(ga, gb, gd, gk=None, device=None, chunk: int = 8192,
+                 ctas=None) -> list:
+    """K3's tables (:class:`PipeChunk`) for operand arrays apart from the
+    destination: pair i reads ``Xa[ga[i]]`` and ``Xb[gb[i]]`` (``xab``)
+    and updates row ``gd[i]`` of another tensor, as the mesh paths run it
+    (``parallel/``: a halo buffer or a replicated pool as the operands, a
+    touched-tile buffer as the destination).  The pairs, sorted by
+    destination, go in chunks of ``chunk``, as
+    :func:`build_pipeline_schedule` cuts them with ``ext_tiles``; its
+    check that destinations and operands are other tiles of one pool
+    does not apply to two tensors."""
+    order = np.argsort(np.asarray(gd, np.int64), kind="stable")
+    ga, gb, gd = (np.asarray(x, np.int32)[order] for x in (ga, gb, gd))
+    gk = None if gk is None else np.asarray(gk, np.int32)[order]
+    sched = []
+    for lo in range(0, gd.size, chunk):
+        sl = slice(lo, lo + chunk)
+        t = {"ga": ga[sl], "gb": gb[sl], "gd": gd[sl], "ga_c": ga[sl],
+             "gb_c": gb[sl],
+             "flags": np.full(gd[sl].size, _F_VALID, np.int32)}
+        if gk is not None:
+            t["gk"] = gk[sl]
+        sched.append(t)
+    return pipeline_plan(sched, device, ctas=ctas)
+
+
 def move_chunks(chunks, device) -> list:
     """The chunks (:class:`PipeChunk`) with their tables on ``device``."""
     return [dataclasses.replace(c, **{

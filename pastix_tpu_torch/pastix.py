@@ -10,7 +10,10 @@ its Schur-complement calls (``set_schur_unknowns``, ``get_schur``,
 :func:`pastix` the reference's array API with its phase window.  The
 host phases (ordering, symbolic factorization, the supernode-aligned or
 Schur extension) are copies of the reference's methods; the numeric
-phases run on one device through the port's kernels.  With ``trace``
+phases run on one device through the port's kernels, or with
+``mesh_shape`` on each rank of a ``torch.distributed`` process group
+(``parallel/``: owner-computes over a sharded pool, the replicated pool
+or the subtree schedule, the reference's routing).  With ``trace``
 each phase is a span of ``self.tracer`` (``trace.Tracer``), ended after
 the device has finished, and ``dump_trace`` writes them; ``factorize``
 sets ``report.predicted_fact_time`` from the cost model (``perf``).
@@ -72,6 +75,7 @@ from pastix_tpu_torch.symbolic import compute_symbolic
 from pastix_tpu_torch.trace import Tracer
 from pastix_tpu_torch._device import pin_precision, resolve_device, synchronize
 from pastix_tpu_torch.krylov import build_device_refine_fn, build_ell
+from pastix_tpu_torch.numeric.kernels import np_dtype
 from pastix_tpu_torch.numeric.factorize import (
     Factors,
     build_coefinit_fn,
@@ -81,6 +85,9 @@ from pastix_tpu_torch.numeric.factorize import (
 )
 from pastix_tpu_torch.numeric.ooc import (
     build_streamed_solve_fn, plan_ooc, reset_io,
+)
+from pastix_tpu_torch.parallel.mesh import (
+    Axis, check_world, make_mesh, rank_device, world,
 )
 from pastix_tpu_torch.refine import refine as refine_fn, refine_block
 from pastix_tpu_torch.solve import (
@@ -170,18 +177,27 @@ def _check_config(cfg: PastixConfig) -> None:
     if cfg.schur:
         _check_schur(cfg)
     if cfg.mesh_shape is not None:
-        raise _not_ported("mesh_shape (multi-device)", "slice 5")
+        check_world(cfg.mesh_shape)
 
 
 class Pastix:
     """Sparse direct solver instance on one device (``cuda`` by default;
-    ``device="cpu"`` runs the plain PyTorch twins of the kernels)."""
+    ``device="cpu"`` runs the plain PyTorch twins of the kernels), or on
+    each rank of a process group with ``mesh_shape`` (``device=None``
+    then means the rank's card, ``parallel.mesh.rank_device``)."""
 
     def __init__(self, A=None, config: Optional[PastixConfig] = None,
                  device=None):
         self.config = config or PastixConfig()
         _check_config(self.config)
+        if self.config.mesh_shape is not None:
+            device = rank_device(device)
         self.device = resolve_device(device)
+        self._mesh = None  # the DeviceMesh of mesh_shape, from analyze
+        self._tp = self._dp = None  # its tp and dp axes (mesh.Axis)
+        self._pool_sharding = None  # owner.PoolSharding (owner path)
+        self._sharded_refine_fn = None  # the mesh's device refinement
+        self._a_coo_dev = None  # its share of A's COO entries
         self.report = SolveReport()
         self.A: Optional[SparseMatrix] = None
         self.order_: Optional[Order] = None
@@ -641,7 +657,12 @@ class Pastix:
         card after each factorization when they exceed ``ooc_limit_mb``
         (always with a limit of 0) and a solve brings them back
         (:meth:`_offload_factors`); the host loop refines there too.  The
-        device loop is built only for factors that stay on the card."""
+        device loop is built only for factors that stay on the card.
+
+        With ``mesh_shape`` the tables are the mesh's
+        (:meth:`_analyze_mesh`): no streaming, packed plan or
+        auto-streaming, and ``dist_strategy="subtree"`` has no dense tail
+        (its shared top phase covers those columns)."""
         cfg = self.config
         if self.symbol_ is None:
             self.symbfact()
@@ -653,9 +674,17 @@ class Pastix:
         plain = dt != torch.float32
         itemsize = dt.itemsize
         is_lu = kind == Factorization.LU
+        mesh = cfg.mesh_shape is not None
+        # the subtree schedule's shared top phase covers the tail
+        use_subtree = (mesh and cfg.dist_strategy == "subtree"
+                       and cfg.factorization in (Factorization.LLT,
+                                                 Factorization.LDLT)
+                       and not dt.is_complex)
         want_tail = (cfg.dense_tail and self._schur_first_bcol is None
                      and kind == Factorization.LLT and herm
-                     and not cfg.incomplete)
+                     and not cfg.incomplete and not use_subtree)
+        if mesh and cfg.ooc:
+            raise _not_ported("out-of-core (ooc) with mesh_shape", "A9")
         # streaming is decided before the layout: its windows cannot hold
         # the dense tail's (m, m) block
         stream = cfg.ooc and cfg.ooc_limit_mb > 0 and self._can_stream()
@@ -686,7 +715,7 @@ class Pastix:
                 tail_lay = self._build_layout(True)
                 if tail_lay.npool * tile_bytes <= budget:
                     self.layout, use_tail = tail_lay, True
-        elif free is not None and pool_bytes > free:
+        elif free is not None and pool_bytes > free and not mesh:
             if not self._can_stream():
                 raise MemoryError(
                     f"{'two tile pools' if is_lu else 'a tile pool'} of "
@@ -731,7 +760,7 @@ class Pastix:
         if env_packed is not None:
             packed_on = env_packed != "0"
         self._packed_plan = None
-        if packed_on and not cfg.incomplete and plan is None:
+        if packed_on and not cfg.incomplete and plan is None and not mesh:
             self._packed_plan = build_packed_plan(
                 lay, self._pat_perm_ext,
                 levels=(self._dense_tail.levels_lo
@@ -739,43 +768,47 @@ class Pastix:
                 for_lu=is_lu,
             )
         upd = _UPDATE_DTYPES[cfg.update_dtype]
-        # a streamed pool is assembled in host memory, pinned for the card
-        self._coef_fn = build_coefinit_fn(
-            lay, self._A_perm, dev if plan is None else torch.device("cpu"),
-            for_lu=is_lu, dtype=dt,
-            pin_memory=plan is not None and dev.type == "cuda")
-        self._fact_fn = build_factorize_fn(
-            lay, dev, kind, update_dtype=upd, dense_tail=self._dense_tail,
-            dtype=dt, hermitian=herm, packed_plan=self._packed_plan,
-            ooc_plan=plan,
-        )
-        if plan is not None:
-            self._fact_fn.verbose = cfg.verbosity >= Verbosity.YES
-            self._dinv_fn = self._fwd_fn = self._bwd_fn = None
-            self._solve_fn = build_streamed_solve_fn(lay, plan, dev, kind,
-                                                     dt, herm)
-        elif cfg.fast_solve and not plain:
-            self._dinv_fn = build_diag_inverse_fn(lay, dev, kind)
-            self._fwd_fn, self._bwd_fn = build_fwd_bwd_fns(lay, dev, kind)
-            self._solve_fn = build_solve_fn_sweep(lay, dev, kind,
-                                                  self._fwd_fn.plan)
+        if mesh:
+            self._analyze_mesh(use_subtree)
         else:
-            # the per-level solve: no inverse diagonal tiles (nbc T² of
-            # device memory saved, twice on LU), no K2
-            self._dinv_fn = None
-            self._fwd_fn, self._bwd_fn = build_level_fwd_bwd_fns(
-                lay, dev, kind, dt, herm)
-            self._solve_fn = build_solve_fn(lay, dev, kind, dt, herm)
-        self._refine_fn = self._ell = None
-        resident = plan is None and not self._offloads(
-            lay.npool * tile_bytes * npools)
-        if (cfg.device_refine and cfg.fast_solve and not dt.is_complex
-                and cfg.refinement != RefinementMethod.NONE and resident):
-            self._refine_fn = build_device_refine_fn(
-                lay, self._solve_fn, method=cfg.refinement,
-                restart=cfg.gmres_restart, dtype=dt,
+            # a streamed pool is assembled in host memory, pinned for the card
+            self._coef_fn = build_coefinit_fn(
+                lay, self._A_perm,
+                dev if plan is None else torch.device("cpu"),
+                for_lu=is_lu, dtype=dt,
+                pin_memory=plan is not None and dev.type == "cuda")
+            self._fact_fn = build_factorize_fn(
+                lay, dev, kind, update_dtype=upd, dense_tail=self._dense_tail,
+                dtype=dt, hermitian=herm, packed_plan=self._packed_plan,
+                ooc_plan=plan,
             )
-            self._ell = self._device_ell()
+            if plan is not None:
+                self._fact_fn.verbose = cfg.verbosity >= Verbosity.YES
+                self._dinv_fn = self._fwd_fn = self._bwd_fn = None
+                self._solve_fn = build_streamed_solve_fn(lay, plan, dev, kind,
+                                                         dt, herm)
+            elif cfg.fast_solve and not plain:
+                self._dinv_fn = build_diag_inverse_fn(lay, dev, kind)
+                self._fwd_fn, self._bwd_fn = build_fwd_bwd_fns(lay, dev, kind)
+                self._solve_fn = build_solve_fn_sweep(lay, dev, kind,
+                                                      self._fwd_fn.plan)
+            else:
+                # the per-level solve: no inverse diagonal tiles (nbc T² of
+                # device memory saved, twice on LU), no K2
+                self._dinv_fn = None
+                self._fwd_fn, self._bwd_fn = build_level_fwd_bwd_fns(
+                    lay, dev, kind, dt, herm)
+                self._solve_fn = build_solve_fn(lay, dev, kind, dt, herm)
+            self._refine_fn = self._ell = None
+            resident = plan is None and not self._offloads(
+                lay.npool * tile_bytes * npools)
+            if (cfg.device_refine and cfg.fast_solve and not dt.is_complex
+                    and cfg.refinement != RefinementMethod.NONE and resident):
+                self._refine_fn = build_device_refine_fn(
+                    lay, self._solve_fn, method=cfg.refinement,
+                    restart=cfg.gmres_restart, dtype=dt,
+                )
+                self._ell = self._device_ell()
         synchronize(dev)
         self.report.analyze_time = time.perf_counter() - t0
         self._trace_phase("analyze", t0)
@@ -809,6 +842,128 @@ class Pastix:
                 f"(waste {100 * self.report.padding_waste:.0f}%)"
             )
         return lay
+
+    def _analyze_mesh(self, use_subtree: bool) -> None:
+        """The mesh's device tables (reference ``pastix.py:560-592`` and
+        ``:655-790``): the ``DeviceMesh`` of ``mesh_shape`` with the
+        reference's axis names (tp the last axis, dp the first), the
+        ranks' layouts checked equal, then the schedule the reference
+        picks.  Subtree mapping for ``dist_strategy="subtree"`` (real LLᵗ
+        and LDLᵗ); owner-computes over a sharded pool for real LLᵗ, LDLᵗ
+        and LU unless ``shard_pool=False`` or Schur unknowns are set
+        (``parallel/owner``: each rank's coefinit fills its own tiles;
+        the owner solve; the host refinement loop); else the replicated
+        pool (``parallel/sharded``; ``parallel/subtree`` too) with the
+        one-device solve of the pool's dtype over the rank's dp share of
+        the columns, and with ``device_refine`` the device loop whose
+        residual's SpMV is split over tp (real pools)."""
+        from pastix_tpu_torch.parallel.owner import (
+            build_local_coefinit_fn, build_owner_factorize_ldlt,
+            build_owner_factorize_llt, build_owner_factorize_lu,
+            build_owner_solve_llt, build_owner_solve_lu, build_pool_sharding,
+        )
+        from pastix_tpu_torch.parallel.sharded import (
+            build_sharded_factorize, build_sharded_refine,
+            build_sharded_solve,
+        )
+        from pastix_tpu_torch.parallel.subtree import build_subtree_factorize
+
+        cfg, lay, dev = self.config, self.layout, self.device
+        kind, dt, herm = self._kind, self._dtype, self._hermitian
+        upd = _UPDATE_DTYPES[cfg.update_dtype]
+        is_lu = kind == Factorization.LU
+        shape = tuple(int(s) for s in cfg.mesh_shape)
+        names = tuple(cfg.mesh_axis_names)
+        if len(names) != len(shape):
+            names = ("dp", "tp")[2 - len(shape):] if len(shape) <= 2 else (
+                tuple(f"ax{i}" for i in range(len(shape) - 1)) + ("tp",))
+        self._mesh = make_mesh(shape, names)
+        self._tp = Axis(self._mesh, names[-1])
+        self._dp = Axis(self._mesh, names[0]) if len(names) > 1 else None
+        self._check_layout_digest()
+        fz = cfg.factorization
+        owner_ok = (not dt.is_complex and cfg.shard_pool is not False
+                    and self._schur_first_bcol is None and not use_subtree)
+        self._pool_sharding = None
+        self._refine_fn = self._ell = None
+        self._sharded_refine_fn = self._a_coo_dev = None
+        self._dinv_fn = self._fwd_fn = self._bwd_fn = None
+        tp, dp = self._tp, self._dp
+        if owner_ok and ((fz == Factorization.LLT and herm)
+                         or fz in (Factorization.LDLT, Factorization.LU)):
+            # owner-computes over a sharded pool: per-rank memory ~
+            # pool/ranks + halo (the local SolverMatrix of the
+            # reference's solverMatrixGen)
+            tail = self._dense_tail if kind == Factorization.LLT else None
+            sh = self._pool_sharding = build_pool_sharding(lay, tp.size,
+                                                           dense_tail=tail)
+            self._coef_fn = build_local_coefinit_fn(
+                lay, self._A_perm, sh, tp.me, dev, for_lu=is_lu, dtype=dt)
+            if kind == Factorization.LLT:
+                self._fact_fn = build_owner_factorize_llt(
+                    lay, sh, tp, dev, dense_tail=tail, update_dtype=upd,
+                    dtype=dt)
+                self._solve_fn = build_owner_solve_llt(
+                    lay, sh, tp, dev, dense_tail=tail, dp=dp, dtype=dt)
+            elif is_lu:
+                self._fact_fn = build_owner_factorize_lu(
+                    lay, sh, tp, dev, update_dtype=upd, dtype=dt)
+                self._solve_fn = build_owner_solve_lu(lay, sh, tp, dev,
+                                                      dp=dp, dtype=dt)
+            else:
+                self._fact_fn = build_owner_factorize_ldlt(
+                    lay, sh, tp, dev, update_dtype=upd, dtype=dt)
+                self._solve_fn = build_owner_solve_llt(
+                    lay, sh, tp, dev, unit=True, with_d=True, dp=dp,
+                    dtype=dt)
+            self._fact_fn.e2_saved_flops = 0.0
+            return
+        # the replicated pool: every rank holds it whole
+        self._coef_fn = build_coefinit_fn(lay, self._A_perm, dev,
+                                          for_lu=is_lu, dtype=dt)
+        if use_subtree:
+            self._fact_fn = build_subtree_factorize(lay, tp, dev, kind, dt)
+        else:
+            self._fact_fn = build_sharded_factorize(
+                lay, tp, dev, kind, dense_tail=self._dense_tail,
+                update_dtype=upd, dtype=dt, hermitian=herm)
+        if cfg.fast_solve and dt == torch.float32:
+            self._dinv_fn = build_diag_inverse_fn(lay, dev, kind)
+            self._fwd_fn, self._bwd_fn = build_fwd_bwd_fns(lay, dev, kind)
+            inner = build_solve_fn_sweep(lay, dev, kind, self._fwd_fn.plan)
+        else:
+            self._fwd_fn, self._bwd_fn = build_level_fwd_bwd_fns(
+                lay, dev, kind, dt, herm)
+            inner = build_solve_fn(lay, dev, kind, dt, herm)
+        self._solve_fn = build_sharded_solve(lay, dp, inner)
+        if (cfg.device_refine and cfg.refinement != RefinementMethod.NONE
+                and not dt.is_complex):
+            # the fused solve + Richardson with a tp-split SpMV (one
+            # all_reduce a residual); the host loop finishes if needed
+            self._sharded_refine_fn = build_sharded_refine(lay, tp, inner)
+
+    def _check_layout_digest(self) -> None:
+        """Every rank analyzes the whole matrix (the reference's
+        centralized interface under MPI): their orderings and tile tables
+        must agree, or the collectives would pair the wrong tiles.  One
+        all_gather of a digest of them over the process group; a
+        difference raises on every rank."""
+        import hashlib
+
+        lay = self.layout
+        h = hashlib.sha256()
+        for a in (self.order_.permtab, self._ext_map, lay.keys,
+                  *[x for lv in lay.levels for x in (
+                      lv.cols, lv.gemm_a, lv.gemm_b, lv.gemm_d)]):
+            h.update(np.ascontiguousarray(a, np.int64).tobytes())
+        dig = torch.as_tensor(np.frombuffer(h.digest(), np.int64).copy(),
+                              device=self.device)
+        alld = world().all_gather(dig)
+        if not bool((alld == alld[0]).all()):
+            raise RuntimeError(
+                "the ranks' analyses differ (ordering or tile tables): every "
+                "rank must analyze the same matrix with the same config "
+                "(seed included)")
 
     def _device_ell(self):
         """The device loop's fp64 ELL matrix of the current ``A_perm``."""
@@ -881,6 +1036,8 @@ class Pastix:
             return self._factorize_scalar_ilu(t0)
         if self._ooc_plan is not None:
             return self._factorize_streamed(t0)
+        if self._pool_sharding is not None:
+            return self._factorize_owner(t0)
         f = self.factors = numeric_factorize(
             self.layout, self._A_perm, self._coef_fn, self._fact_fn,
             self.device, pivot_threshold=cfg.static_pivoting_threshold,
@@ -890,6 +1047,18 @@ class Pastix:
             lu = f.kind == Factorization.LU
             f.dinv, f.dinv_u = inv if lu else (inv, None)
         self._offload_factors()
+        if self._sharded_refine_fn is not None:
+            # the rank's contiguous share of A's COO entries, padded to a
+            # tp multiple, for the device loop's split residual
+            from pastix_tpu_torch.parallel.sharded import shard_coo
+
+            share = [torch.as_tensor(a.reshape(self._tp.size, -1)[
+                self._tp.me].astype(np.int64 if a.dtype.kind == "i"
+                                    else a.dtype), device=self.device)
+                     for a in shard_coo(sp.coo_matrix(self._A_perm),
+                                        self._tp.size,
+                                        np_dtype(self._dtype))]
+            self._a_coo_dev = tuple(share)
         synchronize(self.device)
         self.report.fact_time = time.perf_counter() - t0
         self._trace_phase("numfact", t0)
@@ -900,8 +1069,10 @@ class Pastix:
         # the cost model's prediction, called as the reference calls it
         # (the layout, fp32 bodies) on this solver's device (the first
         # call at a tile size calibrates, disk-cached); an error
-        # propagates, where the reference swallows it
-        if os.environ.get("PASTIX_MEASURED_PLAN", "1") != "0":
+        # propagates, where the reference swallows it.  A mesh's ranks
+        # skip it (it models one device)
+        if (os.environ.get("PASTIX_MEASURED_PLAN", "1") != "0"
+                and self._mesh is None):
             self.report.predicted_fact_time = predict_fact_time(
                 self.layout, device=self.device)
         if cfg.verbosity >= Verbosity.NO:
@@ -916,6 +1087,62 @@ class Pastix:
                 f"pivots clamped: {self.report.static_pivots}{pred})"
             )
         return self.factors
+
+    def _factorize_owner(self, t0: float) -> Factors:
+        """The owner-computes numeric phase (reference
+        ``_factorize_owner``): each rank's coefinit fills only its own
+        (nloc, T, T) tiles, which stay sharded through the factorization
+        and the solve (``parallel/owner``).  ``report.memory_bytes`` is
+        the rank's pool bytes; ``static_pivots`` counts every rank's.  An
+        LLᵗ breakdown on any rank raises on every rank."""
+        cfg, lay, sh, tp = self.config, self.layout, self._pool_sharding, \
+            self._tp
+        kind = self._kind
+        vals = torch.as_tensor(
+            sp.coo_matrix(self._A_perm).data.astype(np_dtype(self._dtype)),
+            device=self.device)
+        anorm = float(abs(self._A_perm).max()) if self._A_perm.nnz else 1.0
+        eps = cfg.static_pivoting_threshold * anorm
+        if kind == Factorization.LU:
+            p, pu, npiv = self._fact_fn(*self._coef_fn(vals), eps)
+            f = Factors(kind, lay, p, pool_u=pu, n_static_pivots=int(npiv))
+        elif kind == Factorization.LDLT:
+            p, d, npiv = self._fact_fn(self._coef_fn(vals), eps)
+            f = Factors(kind, lay, p, d=d, n_static_pivots=int(npiv))
+        else:
+            p = self._fact_fn(self._coef_fn(vals))
+            cols = np.arange(lay.nbc)
+            dt_ = lay.lookup(cols, cols)
+            mine = torch.as_tensor(sh.loc[dt_[sh.owner[dt_] == tp.me]],
+                                   dtype=torch.int64, device=self.device)
+            bad = (~torch.isfinite(torch.diagonal(
+                p[mine], dim1=-2, dim2=-1))).any().to(torch.int32)
+            if int(tp.all_reduce(bad)):
+                raise FloatingPointError(
+                    "LL^T factorization broke down (NaN/Inf pivot): the "
+                    "matrix is not positive definite. Use Factorization.LDLT "
+                    "(static pivoting) or LU for indefinite or unsymmetric "
+                    "systems.")
+            f = Factors(kind, lay, p)
+        self.factors = f
+        synchronize(self.device)
+        self.report.fact_time = time.perf_counter() - t0
+        self._trace_phase("numfact", t0)
+        self.report.static_pivots = f.n_static_pivots
+        self.report.fact_gflops = self.report.fact_flops / max(
+            self.report.fact_time, 1e-12) / 1e9
+        npools = 2 if kind == Factorization.LU else 1
+        self.report.memory_bytes = (sh.nloc * lay.T ** 2 * npools
+                                    * self._dtype.itemsize)
+        if cfg.verbosity >= Verbosity.NO:
+            print(
+                f"[pastix-tpu-torch] numfact(owner): "
+                f"{self.report.fact_time:.3f}s "
+                f"({self.report.fact_gflops:.2f} GFLOP/s useful, pool"
+                f"{'s' if npools == 2 else ''} sharded {sh.ndev} x "
+                f"{sh.nloc} tiles{' x2' if npools == 2 else ''})"
+            )
+        return f
 
     def _factorize_streamed(self, t0: float) -> Factors:
         """The streamed numeric phase (the reference's
@@ -1063,6 +1290,20 @@ class Pastix:
         return run_host(self._restore_factors(), b_ext, self._solve_fn,
                         self.device)
 
+    def _sharded_solve_refined(self, b_ext: np.ndarray):
+        """The mesh's device loop (``parallel.sharded.build_sharded_refine``,
+        reference ``_sharded_solve_refined``) on a host RHS in the
+        extended permuted order: (x_ext, device iterations)."""
+        cfg, lay = self.config, self.layout
+        bb = torch.as_tensor(rhs_to_blocks(lay, b_ext,
+                                           dtype=np_dtype(self._dtype)),
+                             device=self.device)
+        x, it, _ = self._sharded_refine_fn(
+            self.factors.solve_args(), *self._a_coo_dev, bb,
+            max(cfg.refinement_eps, 5e-7), min(cfg.refinement_itermax, 50))
+        out = blocks_to_rhs(lay, x.to(torch.float64).cpu().numpy())
+        return (out[:, 0] if np.asarray(b_ext).ndim == 1 else out), it
+
     def _device_solve_refined(self, b_ext: np.ndarray):
         """The device loop (``krylov.build_device_refine_fn``) on a host
         RHS in the extended permuted order: (x_ext, device iterations)."""
@@ -1111,8 +1352,11 @@ class Pastix:
         Ap = self._A_perm
         dev_iters = 0
         self.report.refine_time = 0.0
-        if do_refine and self._refine_fn is not None:
-            x_ext, dev_iters = self._device_solve_refined(b_ext)
+        refined = (self._device_solve_refined if self._refine_fn is not None
+                   else self._sharded_solve_refined
+                   if self._sharded_refine_fn is not None else None)
+        if do_refine and refined is not None:
+            x_ext, dev_iters = refined(b_ext)
             r = b_ext - Ap @ x_ext
             res = float(np.linalg.norm(r) / max(np.linalg.norm(b_ext), 1e-300))
             self.report.refine_iters, self.report.residual = dev_iters, res
@@ -1287,6 +1531,8 @@ class Pastix:
         self._coef_fn = self._fact_fn = self._dinv_fn = None
         self._fwd_fn = self._bwd_fn = self._solve_fn = None
         self._refine_fn = None
+        self._sharded_refine_fn = self._a_coo_dev = None
+        self._pool_sharding = None
         self._dense_tail = None
         self._packed_plan = None
         self._ooc_plan = None

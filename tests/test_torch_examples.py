@@ -2,8 +2,8 @@
 process on the CPU (``--device cpu``) at the arguments of the
 reference's ``tests/test_examples.py``, each printing the lines that test
 asserts (``examples.CHECKS``) and returning 0 (each checks its own residual or error against
-1e-8, as the reference's scripts do).  ``multi_device`` waits for the
-multi-GPU slice."""
+1e-8, as the reference's scripts do).  ``multi_device`` starts rank
+processes: ``tests/test_torch_mesh.py`` runs it (``examples.MESH_CHECKS``)."""
 
 import pkgutil
 import runpy
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from pastix_tpu_torch import examples
-from pastix_tpu_torch.examples import CHECKS, NAMES
+from pastix_tpu_torch.examples import CHECKS, MESH_CHECKS, NAMES
 
 # xdist runs six test files at once: one intra-op thread per process keeps
 # six full-width PyTorch thread pools from oversubscribing the cores
@@ -21,9 +21,9 @@ torch.set_num_threads(1)
 
 
 def test_every_example_is_checked():
-    """Every module of the examples package is in its table."""
+    """Every module of the examples package is in its tables."""
     mods = {m.name for m in pkgutil.iter_modules(examples.__path__)}
-    assert mods == set(NAMES)
+    assert mods == set(NAMES) | set(MESH_CHECKS)
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -243,14 +243,22 @@ def test_cli_end_to_end(capsys, args):
 
 
 @pytest.mark.parametrize("flag,slice_", [
-    (["--mesh", "2"], "slice 5"), (["--ooc", "1"], None),
+    (["--mesh", "2"], "ranks"), (["--ooc", "1"], None),
     (["--fact", "ldlh"], None), (["--dtype", "f64"], None),
     (["--dtype", "c64"], None),
 ], ids=["mesh", "ooc", "ldlh", "f64", "c64"])
 def test_cli_unported_flags_name_their_slice(flag, slice_):
     """``--fact ldlh`` (of the real Laplacian: LDLᵗ) and ``--dtype
     f64|c64`` are taken since A3 was ported, and ``--ooc MB`` since A8
-    was: they solve."""
+    was: they solve.  ``--mesh`` is taken since A9 was: it runs on the
+    ranks of a process group (``torchrun``), and without one raises
+    naming the ranks it needs (``tests/test_torch_mesh.py`` runs meshes
+    on ranks)."""
+    if slice_ == "ranks":
+        with pytest.raises(ValueError, match="needs a process group of 2 "
+                                             "ranks, but no process group"):
+            cli_main(["-lap3", "4", "--cpu", "-q", *flag])
+        return
     if slice_ is None:
         assert cli_main(["-lap3", "4", "--cpu", "-q", *flag]) == 0
         return

@@ -36,7 +36,8 @@ SLICE_MODULES = [
     "pastix_tpu_torch.examples",
     *(f"pastix_tpu_torch.examples.{m}" for m in (
         "simple", "step_by_step", "schur", "reentrant", "murge_assembly",
-        "isolate_zeros", "simple_dist", "memory_usage", "out_of_core")),
+        "isolate_zeros", "simple_dist", "memory_usage", "out_of_core",
+        "multi_device")),
     "pastix_tpu_torch.generators",
     "pastix_tpu_torch.krylov",
     "pastix_tpu_torch.murge",
@@ -56,6 +57,13 @@ SLICE_MODULES = [
     "pastix_tpu_torch.numeric.sweep_kernels",
     "pastix_tpu_torch.numeric.tile_factor",
     "pastix_tpu_torch.order",
+    "pastix_tpu_torch.parallel",
+    "pastix_tpu_torch.parallel.dryrun",
+    "pastix_tpu_torch.parallel.launch",
+    "pastix_tpu_torch.parallel.mesh",
+    "pastix_tpu_torch.parallel.owner",
+    "pastix_tpu_torch.parallel.sharded",
+    "pastix_tpu_torch.parallel.subtree",
     "pastix_tpu_torch.pastix",
     "pastix_tpu_torch.perf",
     "pastix_tpu_torch.refine",

@@ -204,7 +204,7 @@ def test_unported_kinds_raise(make, exc, match):
 
 
 @pytest.mark.parametrize("cfg,taken", [
-    (dict(compute_dtype="complex64"), True), (dict(mesh_shape=(2,)), False),
+    (dict(compute_dtype="complex64"), True), (dict(mesh_shape=(2,)), "ranks"),
     (dict(ooc=True), True), (dict(incomplete=True), True),
     (dict(refinement=RefinementMethod.GMRES), True),
     (dict(schur=True, factorization=Factorization.LDLH), True),
@@ -216,7 +216,15 @@ def test_unported_options_raise(cfg, taken):
     refinement methods were ported (A4): it solves; and so is the ilu case
     since ILU was ported (A5): block ILU(1) with GMRES solves; and the ooc
     case since out-of-core was ported (A8): with no limit the factors
-    leave the device after the factorization and a solve restores them."""
+    leave the device after the factorization and a solve restores them.
+    The mesh case is taken since A9 was ported: it runs on the ranks of a
+    process group (``tests/test_torch_mesh.py``), and in this process,
+    which has none, raises naming the ranks it needs."""
+    if taken == "ranks":
+        with pytest.raises(ValueError, match="needs a process group of 2 "
+                                             "ranks, but no process group"):
+            Pastix(poisson_3d(4), PastixConfig(**cfg), device="cpu")
+        return
     if not taken:
         with pytest.raises(NotImplementedError, match="ROADMAP.md slice"):
             Pastix(poisson_3d(4), PastixConfig(**cfg), device="cpu")
